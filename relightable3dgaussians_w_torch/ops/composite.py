@@ -1,0 +1,134 @@
+"""Depth-ordered alpha compositing over 16x16 tiles: the plain PyTorch version.
+
+Port of the JAX package's `ops/composite.py` forward. It is the plain version of
+the hand-written CUDA compositor (`csrc/tile_composite.cu`, wrapped by
+`ops/cuda/tile_composite.py`): the CPU path runs it, and the card compares the
+kernel with it. It composites over the flat sorted entry list addressed by
+`tile_start` / `tile_end`, with no per-tile depth cap.
+
+The per-pixel front-to-back loop is a cumulative product over each tile's
+entries: with effective alphas a_g (zero where the reference `continue`s: power
+> 0 or alpha < 1/255), P_g = prod_{j<=g}(1 - a_j), the termination
+`T*(1-alpha) < 1e-4` is the prefix predicate P_g >= 1e-4, and the weights are
+w_g = include_g * a_g * P_{g-1}.
+
+The skip predicate power > 0 is a discontinuity of height ~opacity, so the
+kernel and this version compute power with the same scalar op order:
+`entry_quad_coeffs` then `power_separable`, every step an elementwise float32
+product or sum (the kernel is built with FMA contraction off).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+ALPHA_MIN = 1.0 / 255.0
+ALPHA_SAT = 0.99
+T_EPS = 1e-4
+
+
+def entry_quad_coeffs(mxl, myl, ca, cb, cc):
+    """Per-entry coefficients of power over tile-local pixel coords.
+
+    power = -0.5*ca*(mxl-px)^2 - 0.5*cc*(myl-py)^2 - cb*(mxl-px)*(myl-py)
+          = q0 + qx*px + qy*py + qxx*px^2 + qyy*py^2 + qxy*px*py.
+    """
+    q0 = -0.5 * (ca * (mxl * mxl) + cc * (myl * myl)) - cb * (mxl * myl)
+    qx = ca * mxl + cb * myl
+    qy = cc * myl + cb * mxl
+    return q0, qx, qy, -0.5 * ca, -0.5 * cc, -cb
+
+
+def power_separable(q, pv, pv2, pp, tile_f, rep_g):
+    """power = f(px) + g(py) + qxy*px*py from 16-wide per-entry f / g tables.
+
+    pv, pv2: pixel coordinates 0..tile-1 and their squares (exact integers);
+    pp: px*py per full pixel. tile_f / rep_g expand the f / g tables to the
+    P = tile^2 pixels (f by px = p % tile, g by py = p // tile): data movement
+    only, so every layout gives the same values.
+    """
+    q0, qx, qy, qxx, qyy, qxy = q
+    f = q0 + qx * pv + qxx * pv2
+    g = qy * pv + qyy * pv2
+    return (tile_f(f) + rep_g(g)) + qxy * pp
+
+
+def _tile_batch(feat, starts, counts, tids, grid_x, tile, length):
+    """alpha [B, L, P] and colors [B, L, C] of a batch of tiles, L = length."""
+    D = feat.shape[0]
+    dev = feat.device
+    lane = torch.arange(length, device=dev)
+    idx = starts[:, None] + lane[None, :]                          # [B, L]
+    valid = lane[None, :] < counts[:, None]
+    rows = feat[torch.clamp(idx, 0, max(D - 1, 0))]                # [B, L, F]
+    tx0 = ((tids % grid_x) * tile).to(torch.float32)[:, None]      # [B, 1]
+    ty0 = ((tids // grid_x) * tile).to(torch.float32)[:, None]
+    q6 = entry_quad_coeffs(rows[..., 0] - tx0, rows[..., 1] - ty0,
+                           rows[..., 2], rows[..., 3], rows[..., 4])  # [B, L] each
+    q6 = tuple(q[..., None] for q in q6)                            # [B, L, 1]
+    pv = torch.arange(tile, dtype=torch.float32, device=dev)        # [tile]
+    pix = torch.arange(tile * tile, device=dev)
+    pp = ((pix % tile) * (pix // tile)).to(torch.float32)           # [P] exact ints
+    power = power_separable(
+        q6, pv, pv * pv, pp,
+        tile_f=lambda f: f.repeat(1, 1, tile),                      # p -> f[p % tile]
+        rep_g=lambda g: g.repeat_interleave(tile, dim=-1),          # p -> g[p // tile]
+    )                                                               # [B, L, P]
+    G = torch.exp(torch.clamp_max(power, 0.0))
+    alpha_raw = torch.clamp_max(rows[..., 5:6] * G, ALPHA_SAT)
+    skip = (power > 0.0) | (alpha_raw < ALPHA_MIN) | ~valid[..., None]
+    alpha = torch.where(skip, 0.0, alpha_raw)
+    return alpha, rows[..., 6:]
+
+
+def _batches(counts: np.ndarray, per_tile: int, budget: int):
+    """Consecutive tile ranges [t0, t1) whose padded [t1-t0, L, per_tile] work
+    stays within `budget` elements (a single tile may exceed it)."""
+    t0 = 0
+    T = counts.shape[0]
+    while t0 < T:
+        t1, lmax = t0 + 1, max(int(counts[t0]), 1)
+        while t1 < T:
+            lnew = max(lmax, int(counts[t1]))
+            if (t1 + 1 - t0) * lnew * per_tile > budget:
+                break
+            t1, lmax = t1 + 1, lnew
+        yield t0, t1, lmax
+        t0 = t1
+
+
+def composite_forward(feat: torch.Tensor, tile_start: torch.Tensor, tile_end: torch.Tensor,
+                      bg: torch.Tensor, grid_x: int, grid_y: int, tile: int = 16,
+                      budget: int = 1 << 24):
+    """Composite all tiles.
+
+    Args:
+        feat: [D, 6 + C] entry rows in sorted order: mx, my, conic a, b, c,
+            opacity, C colors.
+        tile_start, tile_end: [T] entry range of each tile (T = grid_x * grid_y).
+        bg: [C] background.
+        budget: elements of each [tiles, entries, pixels] batch (memory knob).
+    Returns:
+        (tiles_rgb [T, P, C], tiles_tfin [T, P]).
+    """
+    T, P, C = grid_x * grid_y, tile * tile, feat.shape[1] - 6
+    dev = feat.device
+    out_rgb = torch.empty((T, P, C), dtype=torch.float32, device=dev)
+    out_tfin = torch.empty((T, P), dtype=torch.float32, device=dev)
+    counts = tile_end - tile_start
+    for t0, t1, length in _batches(counts.cpu().numpy(), P, budget):
+        tids = torch.arange(t0, t1, device=dev)
+        alpha, colors = _tile_batch(feat, tile_start[t0:t1], counts[t0:t1], tids,
+                                    grid_x, tile, length)
+        one_m = 1.0 - alpha
+        P_inc = torch.cumprod(one_m, dim=1)                         # [B, L, P]
+        P_prev = torch.cat([torch.ones_like(P_inc[:, :1]), P_inc[:, :-1]], dim=1)
+        include = P_inc >= T_EPS
+        w = torch.where(include, alpha * P_prev, 0.0)
+        color = torch.stack([(w * colors[..., c:c + 1]).sum(dim=1) for c in range(C)],
+                            dim=-1)                                 # [B, P, C]
+        T_fin = torch.prod(torch.where(include, one_m, 1.0), dim=1)  # [B, P]
+        out_rgb[t0:t1] = color + T_fin[..., None] * bg
+        out_tfin[t0:t1] = T_fin
+    return out_rgb, out_tfin

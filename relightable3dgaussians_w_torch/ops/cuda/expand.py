@@ -1,0 +1,76 @@
+"""Wrapper of the entry-expansion kernel (`csrc/expand.cu`).
+
+Replaces the JAX package's Pallas `ops/pallas/expand.py` `_expand_kernel`; the
+plain version is `ops/binning.py` `expand_entries_plain`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import build
+
+launches = 0  # kernel launches since the last reset (set to 0 to reset)
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = build.load("expand")
+    lib.r3dgw_expand_entries.argtypes = [_P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _P, _P]
+    lib.r3dgw_expand_entries.restype = ctypes.c_int
+    return lib
+
+
+def _check_input(name, t, dtype, shape, dev):
+    if t.device != dev:
+        raise ValueError(f"expand_entries: {name} is on {t.device}, expected {dev}")
+    if t.dtype != dtype:
+        raise TypeError(f"expand_entries: {name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"expand_entries: {name} must have shape {shape}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"expand_entries: {name} must be contiguous")
+
+
+def expand_entries(counts: torch.Tensor, offsets: torch.Tensor, rect_min: torch.Tensor,
+                   rect_w: torch.Tensor, rank: torch.Tensor, grid_x: int, max_dup: int):
+    """Per entry slot: key (tile << 32) | rank and the Gaussian id.
+
+    Args:
+        counts: [N] int32; offsets: [N] int64 (exclusive cumsum of counts);
+        rect_min: [N, 2] int32; rect_w: [N] int32 (>= 1); rank: [N] int64.
+    Returns:
+        keys [max_dup] int64 (INT64_MAX where unwritten), gid [max_dup] int32
+        (0 where unwritten).
+    """
+    if not counts.is_cuda:
+        from ..binning import expand_entries_plain
+
+        return expand_entries_plain(counts, offsets, rect_min, rect_w, rank, grid_x, max_dup)
+    global launches
+    dev = counts.device
+    n = counts.shape[0]
+    _check_input("counts", counts, torch.int32, (n,), dev)
+    _check_input("offsets", offsets, torch.int64, (n,), dev)
+    _check_input("rect_min", rect_min, torch.int32, (n, 2), dev)
+    _check_input("rect_w", rect_w, torch.int32, (n,), dev)
+    _check_input("rank", rank, torch.int64, (n,), dev)
+    keys = torch.empty((max_dup,), dtype=torch.int64, device=dev)
+    gid = torch.empty((max_dup,), dtype=torch.int32, device=dev)
+    if max(n, max_dup) == 0:
+        return keys, gid
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.r3dgw_expand_entries(
+            counts.data_ptr(), offsets.data_ptr(), rect_min.data_ptr(), rect_w.data_ptr(),
+            rank.data_ptr(), n, grid_x, max_dup, keys.data_ptr(), gid.data_ptr(), stream)
+    build.check(lib, err, "expand_entries launch")
+    launches += 1
+    return keys, gid

@@ -1,0 +1,191 @@
+"""Per-Gaussian preprocessing: projection, EWA 2D covariance, conic, tile rects.
+
+Port of the JAX package's `ops/preprocess.py` (`PreprocessOut`, `compute_cov2d`,
+`preprocess`), itself the reference's `preprocessCUDA`. The integer outputs
+(radius, tiles_touched, tile rects) must equal the JAX package's exactly, so the
+float chains keep its op order: every 3-term projection is written out as
+elementwise products summed left to right (no matmul, whose accumulation order
+is the library's), and the `floor((m -/+ b) / tile)` rect formulas are kept as
+they are.
+
+The opacity-aware rect tightening with `skip_alpha` is kept: at 1/255 it drops
+only (Gaussian, tile) pairs that both compositors skip, so the image is
+unchanged; larger values are the serving LOD knob. `row_intervals` (train-only)
+is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..utils.graphics import covariance_3d, ndc_to_pixel
+
+
+class PreprocessOut(NamedTuple):
+    mean2d: torch.Tensor        # [N, 2] pixel-space centers
+    conic: torch.Tensor         # [N, 3] inverse 2D covariance (a, b, c)
+    depth: torch.Tensor         # [N] view-space z
+    radius: torch.Tensor        # [N] int32 screen-space radius, 0 => culled
+    tiles_touched: torch.Tensor # [N] int32
+    rect_min: torch.Tensor      # [N, 2] int32 (tx, ty) inclusive
+    rect_max: torch.Tensor      # [N, 2] int32 (tx, ty) exclusive
+    cov3d: torch.Tensor         # [N, 6] world covariance (xx, xy, xz, yy, yz, zz)
+
+
+def _affine_row(p: torch.Tensor, M: torch.Tensor, i: int) -> torch.Tensor:
+    """Row i of M @ [p, 1] for points p [N, 3], summed left to right."""
+    return p[:, 0] * M[i, 0] + p[:, 1] * M[i, 1] + p[:, 2] * M[i, 2] + M[i, 3]
+
+
+def compute_cov2d(p_orig: torch.Tensor, cov3d: torch.Tensor, viewmat: torch.Tensor,
+                  focal_x, focal_y, tan_fovx, tan_fovy) -> torch.Tensor:
+    """EWA projection of the 3D covariance to screen space.
+
+    Returns [N, 3] 2D covariance (cxx, cxy, cyy) with the +0.3 low-pass applied.
+    """
+    t0, t1, t2 = (_affine_row(p_orig, viewmat, i) for i in range(3))
+    limx = 1.3 * tan_fovx
+    limy = 1.3 * tan_fovy
+    # Near-culled rows never reach compositing, but must stay finite.
+    tz = torch.where(t2 > 0.2, t2, 1.0)
+    txtz = t0 / tz
+    tytz = t1 / tz
+    tx = torch.minimum(torch.maximum(txtz, -limx), limx) * tz
+    ty = torch.minimum(torch.maximum(tytz, -limy), limy) * tz
+
+    # J = the 2x3 Jacobian of the perspective projection at the clamped point.
+    j00 = focal_x / tz
+    j02 = -(focal_x * tx) / (tz * tz)
+    j11 = focal_y / tz
+    j12 = -(focal_y * ty) / (tz * tz)
+
+    W = viewmat[:3, :3]
+    m00 = j00 * W[0, 0] + j02 * W[2, 0]
+    m01 = j00 * W[0, 1] + j02 * W[2, 1]
+    m02 = j00 * W[0, 2] + j02 * W[2, 2]
+    m10 = j11 * W[1, 0] + j12 * W[2, 0]
+    m11 = j11 * W[1, 1] + j12 * W[2, 1]
+    m12 = j11 * W[1, 2] + j12 * W[2, 2]
+
+    a, b, c, d, e, f = (cov3d[:, i] for i in range(6))  # xx xy xz yy yz zz
+    v0x = a * m00 + b * m01 + c * m02
+    v1x = b * m00 + d * m01 + e * m02
+    v2x = c * m00 + e * m01 + f * m02
+    v0y = a * m10 + b * m11 + c * m12
+    v1y = b * m10 + d * m11 + e * m12
+    v2y = c * m10 + e * m11 + f * m12
+    cxx = m00 * v0x + m01 * v1x + m02 * v2x + 0.3
+    cxy = m10 * v0x + m11 * v1x + m12 * v2x
+    cyy = m10 * v0y + m11 * v1y + m12 * v2y + 0.3
+    return torch.stack([cxx, cxy, cyy], dim=-1)
+
+
+def _tile_floor(x: torch.Tensor, tile: int, hi: int) -> torch.Tensor:
+    return torch.clamp(torch.floor(x / tile), 0, hi).to(torch.int32)
+
+
+def preprocess(means3d: torch.Tensor, scales: torch.Tensor, quats: torch.Tensor,
+               viewmat: torch.Tensor, projmat: torch.Tensor,
+               tan_fovx, tan_fovy, width: int, height: int, tile: int,
+               scale_modifier: float = 1.0,
+               active: torch.Tensor | None = None,
+               opacities: torch.Tensor | None = None,
+               skip_alpha: float = 1.0 / 255.0) -> PreprocessOut:
+    """Vectorized equivalent of preprocessCUDA.
+
+    Args:
+        means3d: [N, 3] world positions.
+        scales: [N, 3] activated (positive) scales.
+        quats: [N, 4] normalized quaternions (w, x, y, z).
+        viewmat: [4, 4] world->view (math convention).
+        projmat: [4, 4] full projection = P @ viewmat.
+        tan_fovx, tan_fovy: float32 scalar tensors.
+        active: optional [N] bool; rows with False are culled outright.
+        opacities: optional [N] or [N, 1] activated opacities; enables the exact
+            opacity-aware rect tightening.
+        skip_alpha: rect-tightening alpha threshold (1/255 = exact).
+    """
+    tan_fovx = torch.as_tensor(tan_fovx, dtype=torch.float32, device=means3d.device)
+    tan_fovy = torch.as_tensor(tan_fovy, dtype=torch.float32, device=means3d.device)
+    focal_x = width / (2.0 * tan_fovx)
+    focal_y = height / (2.0 * tan_fovy)
+    grid_x = (width + tile - 1) // tile
+    grid_y = (height + tile - 1) // tile
+
+    p_view_z = _affine_row(means3d, viewmat, 2)
+    in_front = p_view_z > 0.2
+
+    p_hom_x = _affine_row(means3d, projmat, 0)
+    p_hom_y = _affine_row(means3d, projmat, 1)
+    p_w = _affine_row(means3d, projmat, 3)
+    inv_w = torch.where(in_front, 1.0 / (p_w + 1e-7), 0.0)
+    mean2d = torch.stack(
+        [ndc_to_pixel(p_hom_x * inv_w, width), ndc_to_pixel(p_hom_y * inv_w, height)], dim=-1)
+
+    cov3d = covariance_3d(scales, quats, scale_modifier)
+    cov = compute_cov2d(means3d, cov3d, viewmat, focal_x, focal_y, tan_fovx, tan_fovy)
+    cxx, cxy, cyy = cov[:, 0], cov[:, 1], cov[:, 2]
+    det = cxx * cyy - cxy * cxy
+    det_ok = det != 0.0
+    det_inv = 1.0 / torch.where(det_ok, det, 1.0)
+    conic = torch.stack([cyy * det_inv, -cxy * det_inv, cxx * det_inv], dim=-1)
+
+    mid = 0.5 * (cxx + cyy)
+    disc = torch.sqrt(torch.clamp_min(mid * mid - det, 0.1))
+    lambda1 = mid + disc
+    radius_f = torch.ceil(3.0 * torch.sqrt(torch.clamp_min(torch.maximum(lambda1, mid - disc), 0.0)))
+
+    # Reference tile rectangle (exclusive max, clamped to the grid); the
+    # visibility filter always uses this square.
+    mx, my = mean2d[:, 0], mean2d[:, 1]
+    rx_min = _tile_floor(mx - radius_f, tile, grid_x)
+    ry_min = _tile_floor(my - radius_f, tile, grid_y)
+    rx_max = _tile_floor(mx + radius_f + tile - 1, tile, grid_x)
+    ry_max = _tile_floor(my + radius_f + tile - 1, tile, grid_y)
+    area = (rx_max - rx_min) * (ry_max - ry_min)
+
+    alive = in_front & det_ok & (area > 0)
+    if active is not None:
+        alive = alive & active
+    radius = torch.where(alive, radius_f, 0.0).to(torch.int32)
+
+    if opacities is not None:
+        # Exact opacity-aware tightening (module docstring): pixels with
+        # |mx - px| <= bx live in tiles [floor((mx-bx)/tile), floor((mx+bx)/tile)],
+        # intersected with the reference square. The 1.0001 factor + 0.5 px absorb
+        # float rounding in the compositor's power chain.
+        op = opacities[:, 0] if opacities.ndim == 2 else opacities
+        # Multiply by the reciprocal: 1/(1/255) rounds to exactly 255.0 in f32.
+        tau = torch.sqrt(torch.clamp_min(
+            2.0 * torch.log((1.0 / skip_alpha) * torch.clamp_min(op, 1e-12)), 0.0))
+        bx = tau * torch.sqrt(torch.clamp_min(cxx, 0.0)) * 1.0001 + 0.5
+        by = tau * torch.sqrt(torch.clamp_min(cyy, 0.0)) * 1.0001 + 0.5
+        tx0 = _tile_floor(mx - bx, tile, grid_x)
+        ty0 = _tile_floor(my - by, tile, grid_y)
+        tx1 = torch.clamp(torch.floor((mx + bx) / tile) + 1, 0, grid_x).to(torch.int32)
+        ty1 = torch.clamp(torch.floor((my + by) / tile) + 1, 0, grid_y).to(torch.int32)
+        rx_min = torch.maximum(rx_min, tx0)
+        ry_min = torch.maximum(ry_min, ty0)
+        rx_max = torch.minimum(rx_max, tx1)
+        ry_max = torch.minimum(ry_max, ty1)
+        area_t = torch.clamp_min(rx_max - rx_min, 0) * torch.clamp_min(ry_max - ry_min, 0)
+        contributes = alive & (op >= skip_alpha)
+        tiles_touched = torch.where(contributes, area_t, 0).to(torch.int32)
+        # Keep the rect fields consistent with tiles_touched for the rect walk.
+        rx_min = torch.minimum(rx_min, rx_max)
+        ry_min = torch.minimum(ry_min, ry_max)
+    else:
+        tiles_touched = torch.where(alive, area, 0).to(torch.int32)
+
+    return PreprocessOut(
+        mean2d=mean2d,
+        conic=conic,
+        depth=p_view_z,
+        radius=radius,
+        tiles_touched=tiles_touched,
+        rect_min=torch.stack([rx_min, ry_min], dim=-1),
+        rect_max=torch.stack([rx_max, ry_max], dim=-1),
+        cov3d=cov3d,
+    )

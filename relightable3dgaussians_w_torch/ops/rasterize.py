@@ -1,0 +1,126 @@
+"""Forward Gaussian rasterizer: preprocess -> bin -> gather -> composite.
+
+Port of the JAX package's `ops/rasterize.py` forward path (`RasterizerConfig`,
+`CameraMatrices`, `RasterizeAux`, `_assemble_image`, `rasterize`). On the card
+the expansion and the compositor are the hand-written CUDA kernels of
+`ops/cuda/`; on the CPU their plain PyTorch versions. The TPU layout knobs of
+the JAX config (Pallas chunking, segment alignment, tiles per grid step) have no
+meaning here and are dropped. The backward arrives with the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..device import resolve_device
+from .binning import bin_gaussians
+from .cuda import tile_composite as _composite_kernel
+from .preprocess import preprocess
+
+
+class RasterizerConfig(NamedTuple):
+    """Static rasterizer configuration."""
+    width: int
+    height: int
+    tile: int = 16
+    max_dup: int = 1 << 18           # total (Gaussian, tile) entry budget
+    scale_modifier: float = 1.0
+    row_intervals: bool = False      # per-row ellipse culling: not yet ported
+    skip_alpha: float = 1.0 / 255.0  # rect tightening threshold; 1/255 = exact,
+                                     # larger = serving LOD (fewer entries, each
+                                     # dropped one < skip_alpha per pixel)
+    packed_rgb: bool = False         # 12-bit packed R/B serving colors: not yet
+                                     # ported
+
+    @property
+    def grid_x(self) -> int:
+        return (self.width + self.tile - 1) // self.tile
+
+    @property
+    def grid_y(self) -> int:
+        return (self.height + self.tile - 1) // self.tile
+
+
+class CameraMatrices(NamedTuple):
+    """Camera inputs (math convention: apply as M @ [p, 1])."""
+    viewmat: torch.Tensor   # [4, 4] world -> view
+    projmat: torch.Tensor   # [4, 4] full projection = P @ viewmat
+    campos: torch.Tensor    # [3]
+    tan_fovx: torch.Tensor  # [] float32
+    tan_fovy: torch.Tensor  # [] float32
+
+
+class RasterizeAux(NamedTuple):
+    radii: torch.Tensor        # [N] int32 screen radius (0 = culled)
+    visibility: torch.Tensor   # [N] bool (radii > 0)
+    depth: torch.Tensor        # [N] view-space z per Gaussian
+    alpha: torch.Tensor        # [H, W] 1 - T_final
+    num_entries: torch.Tensor  # [] int64
+    overflow: torch.Tensor     # [] int64 dropped entries (0 = exact render)
+
+
+def _assemble_image(tiles_rgb, tiles_tfin, cfg: RasterizerConfig, channels: int):
+    gx, gy, t = cfg.grid_x, cfg.grid_y, cfg.tile
+    img = tiles_rgb.reshape(gy, gx, t, t, channels)
+    img = img.permute(0, 2, 1, 3, 4).reshape(gy * t, gx * t, channels)
+    tfin = tiles_tfin.reshape(gy, gx, t, t).permute(0, 2, 1, 3).reshape(gy * t, gx * t)
+    return img[: cfg.height, : cfg.width], tfin[: cfg.height, : cfg.width]
+
+
+def rasterize(means3d, scales, quats, opacities, colors, bg,
+              cam: CameraMatrices, cfg: RasterizerConfig, active=None,
+              device: str | torch.device = "cuda"):
+    """Render depth-sorted alpha-composited Gaussians.
+
+    Args:
+        means3d: [N, 3] world positions.
+        scales: [N, 3] activated scales.
+        quats: [N, 4] normalized quaternions (w, x, y, z).
+        opacities: [N] or [N, 1] activated opacities in (0, 1).
+        colors: [N, C] per-Gaussian features to composite.
+        bg: [C] background value per channel.
+        active: optional [N] bool; False rows are culled.
+        device: where to render; inputs are moved there. "cuda" (the default)
+            raises when CUDA is absent.
+
+    Returns:
+        image: [H, W, C]
+        aux: RasterizeAux
+    """
+    if cfg.packed_rgb:
+        raise ValueError("RasterizerConfig.packed_rgb is not yet ported to the torch package")
+    if cfg.row_intervals:
+        raise ValueError("RasterizerConfig.row_intervals is not yet ported to the torch package")
+    dev = resolve_device(device)
+    means3d, scales, quats, opacities, colors, bg = (
+        x.to(dev, torch.float32) for x in (means3d, scales, quats, opacities, colors, bg))
+    cam = CameraMatrices(*[x.to(dev) for x in cam])
+    if active is not None:
+        active = active.to(dev)
+    if opacities.ndim == 2:
+        opacities = opacities[:, 0]
+
+    pre = preprocess(
+        means3d, scales, quats, cam.viewmat, cam.projmat, cam.tan_fovx, cam.tan_fovy,
+        cfg.width, cfg.height, cfg.tile, cfg.scale_modifier, active, opacities,
+        skip_alpha=cfg.skip_alpha,
+    )
+    binning = bin_gaussians(pre, cfg.grid_x, cfg.grid_y, cfg.max_dup)
+    # Entry rows in sorted order: mean2d, conic, opacity, colors. Slots past the
+    # real entries carry id 0 and lie outside every tile range.
+    feat_pack = torch.cat([pre.mean2d, pre.conic, opacities[:, None], colors], dim=-1)
+    feat = feat_pack[binning.gauss_id.long()]
+    tiles_rgb, tiles_tfin = _composite_kernel.composite_forward(
+        feat, binning.tile_start, binning.tile_end, bg, cfg.grid_x, cfg.grid_y, cfg.tile)
+    image, tfin = _assemble_image(tiles_rgb, tiles_tfin, cfg, colors.shape[-1])
+    aux = RasterizeAux(
+        radii=pre.radius,
+        visibility=pre.radius > 0,
+        depth=pre.depth,
+        alpha=1.0 - tfin,
+        num_entries=binning.num_entries,
+        overflow=binning.overflow,
+    )
+    return image, aux

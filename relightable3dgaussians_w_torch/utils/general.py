@@ -1,0 +1,50 @@
+"""General math helpers: port of the JAX package's `utils/general.py` (the parts
+the serving path uses)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def inverse_sigmoid(x):
+    return torch.log(x / (1 - x))
+
+
+def get_minimum_axis(scales: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+    """Column of R for the smallest scale (first minimum wins, like argmin).
+
+    Args:
+        scales: [N, 3] positive scales.
+        R: [N, 3, 3] rotation matrices (columns = principal axes).
+    Returns:
+        [N, 3]
+    """
+    s0, s1, s2 = scales[..., 0:1], scales[..., 1:2], scales[..., 2:3]
+    c0, c1, c2 = R[..., 0], R[..., 1], R[..., 2]
+    first01 = s0 <= s1
+    ax01 = torch.where(first01, c0, c1)
+    s01 = torch.where(first01, s0, s1)
+    return torch.where(s01 <= s2, ax01, c2)
+
+
+def flip_align_view(normal: torch.Tensor, viewdir: torch.Tensor):
+    """Flip normals to face the camera (viewdir points from camera to point)."""
+    dotprod = torch.sum(normal * -viewdir, dim=-1, keepdim=True)
+    non_flip = dotprod >= 0
+    return torch.where(non_flip, normal, -normal), non_flip
+
+
+def cartesian_to_polar(xyz: torch.Tensor, center: torch.Tensor, radius) -> torch.Tensor:
+    """(theta, phi) sky-sphere angles of points on a sphere (COLMAP coords, y down)."""
+    theta = torch.arccos(torch.clamp((-xyz[..., 1] + center[1]) / radius, -1, 1))
+    phi = torch.arctan2(xyz[..., 0] - center[0], xyz[..., 2] - center[2])
+    return torch.stack([theta, phi], dim=-1)
+
+
+def polar_to_cartesian(angles: torch.Tensor, center: torch.Tensor, radius) -> torch.Tensor:
+    """Inverse of cartesian_to_polar: sky (theta, phi) -> xyz on the sky sphere."""
+    theta, phi = angles[..., 0], angles[..., 1]
+    x = radius * torch.sin(theta) * torch.sin(phi) + center[0]
+    y = -radius * torch.cos(theta) + center[1]
+    z = radius * torch.sin(theta) * torch.cos(phi) + center[2]
+    return torch.stack([x, y, z], dim=-1)

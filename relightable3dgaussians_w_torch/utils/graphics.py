@@ -1,0 +1,69 @@
+"""Camera / projection / rotation / covariance math.
+
+Port of the JAX package's `utils/graphics.py` (the parts the serving path uses).
+Math convention throughout: `p_view = viewmat @ [p, 1]`.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+
+def projection_matrix(znear: float, zfar: float, fovx: float, fovy: float) -> np.ndarray:
+    """OpenGL-style perspective with z in [0, zfar/(zfar-znear)] and +z forward
+    (the reference `getProjectionMatrix`, math convention: apply as P @ p)."""
+    tan_hx = math.tan(fovx / 2)
+    tan_hy = math.tan(fovy / 2)
+    P = np.zeros((4, 4), dtype=np.float32)
+    P[0, 0] = 1.0 / tan_hx
+    P[1, 1] = 1.0 / tan_hy
+    P[2, 2] = zfar / (zfar - znear)
+    P[2, 3] = -(zfar * znear) / (zfar - znear)
+    P[3, 2] = 1.0
+    return P
+
+
+def ndc_to_pixel(v: torch.Tensor, size) -> torch.Tensor:
+    """NDC [-1,1] -> continuous pixel center coordinate."""
+    return ((v + 1.0) * size - 1.0) * 0.5
+
+
+def safe_normalize(x: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
+    """x / |x| with a clamped squared norm (finite gradient at 0)."""
+    return x * torch.rsqrt(torch.clamp_min(torch.sum(x * x, dim=-1, keepdim=True), eps))
+
+
+def _rotmat_entries(q: torch.Tensor):
+    r, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return (
+        1 - 2 * (y * y + z * z), 2 * (x * y - r * z), 2 * (x * z + r * y),
+        2 * (x * y + r * z), 1 - 2 * (x * x + z * z), 2 * (y * z - r * x),
+        2 * (x * z - r * y), 2 * (y * z + r * x), 1 - 2 * (x * x + y * y),
+    )
+
+
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (w, x, y, z) -> [..., 3, 3] rotation matrix (normalizes q)."""
+    R = torch.stack(_rotmat_entries(safe_normalize(q)), dim=-1)
+    return R.reshape(q.shape[:-1] + (3, 3))
+
+
+def covariance_3d(scales: torch.Tensor, quats: torch.Tensor,
+                  scale_modifier: float = 1.0) -> torch.Tensor:
+    """World covariance R S S^T R^T as (xx, xy, xz, yy, yz, zz), with the raw
+    (non-normalizing) quaternion convention of the rasterizer's computeCov3D."""
+    r00, r01, r02, r10, r11, r12, r20, r21, r22 = _rotmat_entries(quats)
+    s0 = scale_modifier * scales[..., 0]
+    s1 = scale_modifier * scales[..., 1]
+    s2 = scale_modifier * scales[..., 2]
+    s0, s1, s2 = s0 * s0, s1 * s1, s2 * s2
+    xx = r00 * r00 * s0 + r01 * r01 * s1 + r02 * r02 * s2
+    xy = r00 * r10 * s0 + r01 * r11 * s1 + r02 * r12 * s2
+    xz = r00 * r20 * s0 + r01 * r21 * s1 + r02 * r22 * s2
+    yy = r10 * r10 * s0 + r11 * r11 * s1 + r12 * r12 * s2
+    yz = r10 * r20 * s0 + r11 * r21 * s1 + r12 * r22 * s2
+    zz = r20 * r20 * s0 + r21 * r21 * s1 + r22 * r22 * s2
+    return torch.stack([xx, xy, xz, yy, yz, zz], dim=-1)
