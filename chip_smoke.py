@@ -1,4 +1,4 @@
-"""Smoke run of the torch port's serving path on one CUDA card.
+"""Smoke run of the torch port's serving path and training step on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -13,13 +13,34 @@ Gaussians, random MLP weights from a seed), then:
             under 0.1% of pixels off by more than 1e-3, median error under
             1e-5), with median times over repeated launches (CUDA events) and
             each kernel's lower bound from the bytes and float32 operations
-            this frame needs (H100 SXM: 3.35 TB/s, 67 TFLOP/s float32);
+            this frame needs (H100 SXM: 3.35 TB/s, 67 TFLOP/s float32; the
+            compositor's operations counted per (pixel, entry) pair the walk
+            visits: the full cost where the entry contributes, the power test,
+            or the power and alpha tests, where it is skipped);
 3. stages:  the frame's stages timed one by one with CUDA events;
 4. serve:   frames through the port's ViewerServer (json protocol on
             127.0.0.1) sweeping yaw over -10..10 degrees, each checked for its
             byte count, a zero entry overflow and launches of both kernels;
 5. reference: a 2,000-Gaussian 64x64 render on the card against the plain
-            PyTorch path on the CPU.
+            PyTorch path on the CPU;
+6. train_kernels: on the first training step's inputs (13 fused channels,
+            taken from the autograd graph of `train_step.forward_loss`: the
+            compositor's saved inputs and outputs and the cotangents that reach
+            the compositor and the gather), the compositor forward at C = 13,
+            the compositor backward and the gather transpose (segment sum)
+            against their plain versions (the backward per gradient group
+            within max |delta| / max |ref| < 5e-3, the segment sum within 1e-5
+            of index_add_), both bitwise equal over two launches, with times
+            and bounds as in phase 2;
+7. train:   6 training steps through `train_step` at full width (target: the
+            port's own render of the scene under embedding 1; sky and occluder
+            masks all ones), each checked for a finite loss, zero overflow,
+            finite parameters, a nonzero densification statistic on visible
+            rows and launches of all four kernels; ms per step (median of steps
+            2-6), the peak device memory, and from a profiled window of 3 more
+            steps the stage breakdown (the port's own profiler ranges) and the
+            device idle share; then, from the starting state, 6 steps that all
+            reuse one set of draws, whose loss must fall.
 
 Each phase prints one JSON line, with the card's nvidia-smi name and power
 limit under "card". The last lines are the kernel table, the
@@ -41,24 +62,59 @@ import time
 import numpy as np
 import torch
 
-from relightable3dgaussians_w_torch import synthetic, viewer
+from relightable3dgaussians_w_torch import synthetic, train_step as TS, viewer
 from relightable3dgaussians_w_torch.config import Config
 from relightable3dgaussians_w_torch.models import gaussians as G
 from relightable3dgaussians_w_torch.models.nets import MLPNet
-from relightable3dgaussians_w_torch.ops import binning, composite, preprocess, rasterize
+from relightable3dgaussians_w_torch.ops import binning, composite, preprocess, rasterize, segment_sum
 from relightable3dgaussians_w_torch.ops.cuda import build
 from relightable3dgaussians_w_torch.ops.cuda import expand as expand_kernel
+from relightable3dgaussians_w_torch.ops.cuda import segment_sum as segment_sum_kernel
 from relightable3dgaussians_w_torch.ops.cuda import tile_composite as composite_kernel
-from relightable3dgaussians_w_torch.renderer import compute_colors, render_rgb
+from relightable3dgaussians_w_torch.renderer import compute_colors, render, render_rgb
 
 N_GAUSS = 1_000_000
 N_SKY = 10_000
 RES = 800
 FRAMES = 8
+TRAIN_STEPS = 6
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM data sheet, float32 outside tensor cores
-COMPOSITE_OPS_PER_PAIR = 24    # float ops per visited (pixel, entry) pair, C = 3
 EXPAND_OPS_PER_SLOT = 4        # integer ops per written slot
+# Float ops of a visited (pixel, entry) pair that the compositor skips: power
+# (5 multiplies, 5 adds) and its test; where power <= 0, also expf, alpha
+# (multiply, min) and its test. The terminating pair (power, alpha, then
+# T * (1 - alpha) under 1e-4) is counted as an alpha skip: a lower bound.
+SKIP_POWER_OPS = 11
+SKIP_ALPHA_OPS = 15
+
+
+def composite_ops_per_pair(C):
+    """Float ops per contributing (pixel, entry) pair of the forward kernel:
+    power (10) and the three tests, expf, alpha (multiply, min),
+    T * (1 - alpha), w, 2 per channel for the blend: 25 at C = 3."""
+    return 19 + 2 * C
+
+
+def backward_ops_per_pair(C):
+    """Float ops per contributing pair of the backward kernel: the forward's
+    replay without the blend (19), c . gbar (2C), the prefix Q (2), dL/dalpha
+    (5), dG, dx, dy, G dx, G dy (5), the six geometry terms (17), w gbar (C)
+    and one add per gradient value of the pixel reduction (6 + C)."""
+    return 54 + 4 * C
+
+
+def compositor_ops(per_pair, pairs):
+    """Float ops of a compositor kernel on a frame with `pair_counts` `pairs`."""
+    alpha_skips = pairs["visited"] - pairs["contributing"] - pairs["power_skipped"]
+    return (per_pair * pairs["contributing"] + SKIP_POWER_OPS * pairs["power_skipped"]
+            + SKIP_ALPHA_OPS * alpha_skips)
+
+
+def bound(bytes_, ops):
+    """(bound_ms, bound_by) from the bytes moved and the float32 operations."""
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def emit(obj):
@@ -145,20 +201,24 @@ def frame_inputs(host, deg, dev):
         G.get_opacity(p, s)[:, 0], rgb
 
 
-def visited_pairs(feat, tile_start, tile_end, grid_x):
-    """(pixel, entry) pairs a front-to-back walk visits before each pixel
-    terminates: the data-dependent work of the compositor on this frame."""
+def pair_counts(feat, tile_start, tile_end, grid_x):
+    """The compositor's data-dependent work on this frame, in (pixel, entry)
+    pairs: `visited` before each pixel terminates (the terminating pair
+    included), of which `contributing` (blended) and `power_skipped` (power > 0;
+    counted where exp(min(power, 0)) == 1, which also takes in the rare
+    power <= 0 that rounds to G = 1, so the count errs low)."""
     counts = tile_end - tile_start
-    total = 0
+    out = dict(visited=0, contributing=0, power_skipped=0)
     for t0, t1, length in composite._batches(counts.cpu().numpy(), 256, 1 << 24):
         tids = torch.arange(t0, t1, device=feat.device)
-        alpha, _ = composite._tile_batch(feat, tile_start[t0:t1], counts[t0:t1], tids,
-                                         grid_x, 16, length)
-        p_inc = torch.cumprod(1.0 - alpha, dim=1)
-        p_prev = torch.cat([torch.ones_like(p_inc[:, :1]), p_inc[:, :-1]], dim=1)
-        valid = torch.arange(length, device=feat.device)[None, :] < counts[t0:t1, None]
-        total += int(((p_prev >= composite.T_EPS) & valid[..., None]).sum())
-    return total
+        alpha, aux = composite._tile_batch(feat, tile_start[t0:t1], counts[t0:t1], tids,
+                                           grid_x, 16, length)
+        _, p_prev, include, _, _ = composite._transmittance(alpha)
+        visited = (p_prev >= composite.T_EPS) & aux["valid"][..., None]
+        out["visited"] += int(visited.sum())
+        out["contributing"] += int((visited & include & ~aux["skip"]).sum())
+        out["power_skipped"] += int((visited & aux["skip"] & (aux["G"] == 1.0)).sum())
+    return out
 
 
 def kernels_phase(host, dev):
@@ -208,14 +268,14 @@ def kernels_phase(host, dev):
         feat, b.tile_start, b.tile_end, bg, gx, gy), 20)
     b_plain_ms = median_ms(lambda: composite.composite_forward(
         feat, b.tile_start, b.tile_end, bg, gx, gy), 10)
-    pairs = visited_pairs(feat, b.tile_start, b.tile_end, gx)
+    pairs = pair_counts(feat, b.tile_start, b.tile_end, gx)
     T, P = gx * gy, 256
     b_bytes = total * feat.shape[1] * 4 + T * 2 * 8 + 3 * 4 + T * P * 4 * 4
-    b_ops = COMPOSITE_OPS_PER_PAIR * pairs
+    b_ops = compositor_ops(composite_ops_per_pair(3), pairs)
 
     record = {"phase": "kernels", "frame": "yaw -10, embedding 0, 800x800",
           "gaussians": n, "entries": total, "max_dup": rcfg.max_dup,
-          "visited_pairs": pairs,
+          "pairs": pairs,
           "expand": {"keys_ids_bitwise_equal": True, "ms": a_ms, "plain_ms": a_plain_ms},
           "composite": {"image_max_abs_err": img_err[0], "image_frac_over_1e-3": img_err[1],
                         "image_median_err": img_err[2], "tfin_max_abs_err": alpha_err[0],
@@ -287,8 +347,7 @@ def stages_phase(host, dev, reps=5):
         for _ in range(reps):
             frame()
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    dev_events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_events = device_events(prof)
     busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3 / reps
     top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]
     return {"phase": "stages", "frame": "yaw 0, 800x800", "median_ms": med,
@@ -404,6 +463,321 @@ def reference_phase(dev):
           "image_frac_over_1e-3": err[1], "image_median_err": err[2]}
 
 
+class TrainSetup:
+    """The training slice's inputs at full width: state, camera, target, masks."""
+
+    def __init__(self, host, cam0, dev):
+        self.cfg, self.rcfg, self.mlp = host.cfg, host.rcfg, host.mlp
+        st = host.state
+        self.state = TS.init_train_state(st.gaussians, st.gauss_state, host.mlp, st.embeddings)
+        self.cam = cam0
+        self.bg = torch.zeros(3, device=dev)
+        self.ones = torch.ones((RES, RES), device=dev)
+        m = self.cfg.model
+        with torch.no_grad():
+            # Target: the port's own render of the scene under embedding 1.
+            envl, sky = host.mlp(st.embeddings[1][None])
+            self.gt = render(st.gaussians, st.gauss_state, envl[0], sky, cam0, self.rcfg,
+                             self.bg, self.ones, m.envlight_sh_degree, m.sky_sh_degree,
+                             m.specular, m.fix_sky, debug=False, device=dev).render.contiguous()
+        self.gen = torch.Generator(device=dev).manual_seed(0)
+
+    def args(self, draws):
+        """train_step's arguments after the state."""
+        return (self.cam, self.gt, self.ones, self.ones, 0, draws, self.bg, self.mlp, self.cfg,
+                self.rcfg)
+
+
+def autograd_node(root, name):
+    """The first node of class `name` in the autograd graph below `root`."""
+    seen, todo = set(), [root]
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        if type(node).__name__ == name:
+            return node
+        todo.extend(f for f, _ in node.next_functions)
+    raise LookupError(f"no {name} node in the autograd graph")
+
+
+def first_step_inputs(ts, dev):
+    """The compositor's and the gather's inputs on the first training step,
+    read from the autograd graph of the port's own `forward_loss`: the
+    compositor's saved inputs and outputs, the cotangents that reach it and the
+    gather, and the gather's ids."""
+    draws = TS.make_draws(torch.Generator(device=dev).manual_seed(0), ts.mlp, ts.cfg)
+    params = TS.tree_map(lambda p: p.detach().requires_grad_(True), ts.state.params)
+    n = ts.state.gauss_state.alive.shape[0]
+    probe = torch.zeros((n, 2), device=dev, requires_grad=True)
+    loss, aux = TS.forward_loss(params, ts.state.gauss_state, probe, ts.mlp, ts.cam, ts.gt,
+                                ts.ones, ts.ones, 0, draws, ts.state.step, ts.cfg, ts.rcfg,
+                                ts.bg, device=dev)
+    if int(aux["overflow"]) != 0:
+        raise AssertionError(f"entry budget overflow {int(aux['overflow'])} on the training frame")
+    comp = autograd_node(loss.grad_fn, "_CompositeTilesBackward")
+    gather = autograd_node(loss.grad_fn, "_GatherRowsBackward")
+    feat, tile_start, tile_end, bg, rgb, tfin = (t.detach() for t in comp.saved_tensors)
+    gid, num_valid = gather.saved_tensors
+    got = {}
+    comp.register_prehook(lambda g: got.update(g_rgb=g[0], g_tfin=g[1]))
+    gather.register_prehook(lambda g: got.update(d_rows=g[0]))
+    torch.autograd.grad(loss, TS.tree_leaves(params) + [probe], allow_unused=True)
+    zero_if_none = lambda g, like: torch.zeros_like(like) if g is None else g.contiguous()
+    return dict(feat=feat, tile_start=tile_start, tile_end=tile_end, bg=bg, rgb=rgb, tfin=tfin,
+                g_rgb=zero_if_none(got["g_rgb"], rgb),     # the loss reads no T_final
+                g_tfin=zero_if_none(got["g_tfin"], tfin),
+                d_rows=zero_if_none(got["d_rows"], feat), n=n, entries=int(num_valid),
+                ids=segment_sum.entry_ids(gid, num_valid, n))
+
+
+def train_kernels_phase(ts, dev):
+    """Kernels B (C = 13), C and D on the first training step's inputs."""
+    x = first_step_inputs(ts, dev)
+    feat, ts_, te_, bg, rgb, tfin = (x[k] for k in ("feat", "tile_start", "tile_end", "bg",
+                                                    "rgb", "tfin"))
+    g_rgb, g_tfin, d_rows, gid, n = (x[k] for k in ("g_rgb", "g_tfin", "d_rows", "ids", "n"))
+    rcfg, gx, gy = ts.rcfg, ts.rcfg.grid_x, ts.rcfg.grid_y
+    C = feat.shape[1] - 6
+    T, P = gx * gy, 256
+    entries = x["entries"]
+    pairs = pair_counts(feat, ts_, te_, gx)
+
+    # B at C = 13
+    out_k = composite_kernel.composite_forward(feat, ts_, te_, bg, gx, gy)
+    out_p = composite.composite_forward(feat, ts_, te_, bg, gx, gy)
+    img_k, _ = rasterize._assemble_image(*out_k, rcfg, C)
+    img_p, _ = rasterize._assemble_image(*out_p, rcfg, C)
+    if not torch.isfinite(img_k).all():
+        raise AssertionError("compositor kernel (C = 13) produced non-finite values")
+    b_err = check_image(img_k, img_p, "composite_forward image at C = 13")
+    b_ms = median_ms(lambda: composite_kernel.composite_forward(feat, ts_, te_, bg, gx, gy), 20)
+    b_plain_ms = median_ms(lambda: composite.composite_forward(feat, ts_, te_, bg, gx, gy), 3)
+    b_bound = bound(entries * feat.shape[1] * 4 + T * 2 * 8 + C * 4 + T * P * (C + 1) * 4,
+                    compositor_ops(composite_ops_per_pair(C), pairs))
+
+    # C: compositor backward
+    args = (feat, ts_, te_, bg, rgb, tfin, g_rgb, g_tfin, gx, gy)
+    d_k, dbg_k = composite_kernel.composite_backward(*args)
+    d_k2, _ = composite_kernel.composite_backward(*args)
+    d_p, dbg_p = composite.composite_backward(feat, ts_, te_, bg, gx, gy, g_rgb, g_tfin)
+    torch.cuda.synchronize()
+    if not torch.equal(d_k, d_k2):
+        raise AssertionError("composite_backward kernel is not bitwise repeatable")
+    if not torch.isfinite(d_k).all():
+        raise AssertionError("composite_backward kernel produced non-finite values")
+    c_rel = {}
+    for name, cols in (("mean2d", slice(0, 2)), ("conic", slice(2, 5)),
+                       ("opacity", slice(5, 6)), ("colors", slice(6, None))):
+        ref = d_p[:, cols].abs().max()
+        c_rel[name] = float((d_k[:, cols] - d_p[:, cols]).abs().max() / ref)
+        if not (ref > 0 and c_rel[name] < 5e-3):
+            raise AssertionError(f"composite_backward {name}: max rel err {c_rel[name]:.3e}")
+    c_err = float((d_k - d_p).abs().max())
+    c_ms = median_ms(lambda: composite_kernel.composite_backward(*args), 10)
+    c_plain_ms = median_ms(lambda: composite.composite_backward(
+        feat, ts_, te_, bg, gx, gy, g_rgb, g_tfin), 3)
+    c_bound = bound(entries * feat.shape[1] * 4 * 2 + T * 2 * 8 + T * P * (C + 3) * 4,
+                    compositor_ops(backward_ops_per_pair(C), pairs))
+
+    # D: segment sum of the entry gradient rows into Gaussian rows
+    s_k = segment_sum_kernel.segment_sum_rows(d_rows, gid, n)
+    s_k2 = segment_sum_kernel.segment_sum_rows(d_rows, gid, n)
+    s_p = segment_sum.segment_sum_rows_plain(d_rows, gid, n)
+    torch.cuda.synchronize()
+    if not torch.equal(s_k, s_k2):
+        raise AssertionError("segment_sum kernel is not bitwise repeatable")
+    d_rel = float((s_k - s_p).abs().max() / s_p.abs().max())
+    if not d_rel < 1e-5:
+        raise AssertionError(f"segment_sum kernel: max rel err {d_rel:.3e}")
+    d_err = float((s_k - s_p).abs().max())
+    d_ms = median_ms(lambda: segment_sum_kernel.segment_sum_rows(d_rows, gid, n), 20)
+    d_plain_ms = median_ms(lambda: segment_sum.segment_sum_rows_plain(d_rows, gid, n), 20)
+    zeros = torch.zeros((n + 1, d_rows.shape[1]), device=dev)   # row n: the dropped slots
+    gid64 = gid.long()
+    d_lib_ms = median_ms(lambda: zeros.index_add_(0, gid64, d_rows), 20)
+    D, F = d_rows.shape
+    # The sum reads the real entries' rows and ids once and writes the Gaussian
+    # rows once; the budget's unused slots are dropped unread.
+    d_bound = bound(entries * (F * 4 + 4) + n * F * 4, entries * F)
+
+    record = {"phase": "train_kernels", "frame": "yaw 0, 800x800, 13 channels, step 0",
+              "entries": entries, "slots": D, "pairs": pairs,
+              "composite_forward_c13": {"image_max_abs_err": b_err[0],
+                                        "image_frac_over_1e-3": b_err[1],
+                                        "image_median_err": b_err[2], "ms": b_ms,
+                                        "plain_ms": b_plain_ms},
+              "composite_backward": {"max_rel_err_by_group": c_rel, "bitwise_repeatable": True,
+                                     "d_bg_max_abs_err": float((dbg_k - dbg_p).abs().max()),
+                                     "ms": c_ms, "plain_ms": c_plain_ms},
+              "segment_sum": {"max_rel_err": d_rel, "bitwise_repeatable": True, "ms": d_ms,
+                              "plain_ms": d_plain_ms, "index_add_ms": d_lib_ms}}
+    cu = "relightable3dgaussians_w_torch/csrc/"
+    table = [
+        dict(name="composite_forward_c13", route="cuda", source=cu + "tile_composite.cu",
+             replaces="relightable3dgaussians_w_tpu/ops/pallas/tile_composite.py:193",
+             max_abs_err=b_err[0], ms=b_ms, plain_ms=b_plain_ms, bound_ms=b_bound[0],
+             bound_by=b_bound[1], library_ms=None),
+        dict(name="composite_backward", route="cuda", source=cu + "tile_composite.cu",
+             replaces="relightable3dgaussians_w_tpu/ops/pallas/tile_composite.py:327",
+             max_abs_err=c_err, ms=c_ms, plain_ms=c_plain_ms, bound_ms=c_bound[0],
+             bound_by=c_bound[1], library_ms=None),
+        dict(name="segment_sum_rows", route="cuda", source=cu + "segment_sum.cu",
+             replaces="relightable3dgaussians_w_tpu/ops/pallas/segment_sum.py:44",
+             max_abs_err=d_err, ms=d_ms, plain_ms=d_plain_ms, bound_ms=d_bound[0],
+             bound_by=d_bound[1], library_ms=d_lib_ms),
+    ]
+    return table, record
+
+
+KERNELS = {"expand_entries": (expand_kernel, "launches"),
+           "composite_forward": (composite_kernel, "launches"),
+           "composite_backward": (composite_kernel, "backward_launches"),
+           "segment_sum_rows": (segment_sum_kernel, "launches")}
+
+
+def read_launches():
+    return {k: getattr(mod, attr) for k, (mod, attr) in KERNELS.items()}
+
+
+def reset_launches():
+    for mod, attr in KERNELS.values():
+        setattr(mod, attr, 0)
+
+
+def params_finite(state):
+    return all(bool(torch.isfinite(x).all()) for x in TS.tree_leaves(state.params))
+
+
+# The port's profiler ranges of one training step: the top-level parts of the
+# step, and inside them the rasterizer's stages and the two backward kernels'
+# wrappers.
+STEP_PARTS = ("train_step.to_device", "train_step.leaf_inputs", "train_step.render",
+              "train_step.losses", "train_step.backward", "train_step.adam")
+STEP_SUBRANGES = ("rasterize.preprocess", "rasterize.binning", "rasterize.gather",
+                  "rasterize.composite", "composite_tiles.backward", "gather_rows.backward")
+
+
+def device_events(prof):
+    """The profile's kernel, copy and set events (not the ranges' device spans)."""
+    return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def stage_table(prof, reps):
+    """{range: {"host_ms", "device_span_ms", "device_busy_ms"}} per step from
+    the port's profiler ranges: the host time inside the range; on the device,
+    the range's span (its first kernel's start to its last kernel's end) and the
+    kernel time inside that span. The device runs one stream, so the kernels in
+    a span are the range's. The backward's kernels run on autograd's device
+    thread, outside its range on the calling thread: its span is the gap
+    between the losses' span and Adam's."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    names = STEP_PARTS + STEP_SUBRANGES
+    host, spans, kernels = {}, {}, []
+    for e in prof.events():
+        r = (e.time_range.start, e.time_range.end)
+        if e.name in names:
+            (host if e.device_type == cpu else spans).setdefault(e.name, []).append(r)
+        elif e.device_type == cuda and not getattr(e, "is_user_annotation", False):
+            kernels.append(r)
+    missing = [k for k in names if len(host.get(k, ())) != reps]
+    if missing:
+        raise AssertionError(f"profiled steps lack the ranges {missing}")
+    spans = {k: sorted(v) for k, v in spans.items()}
+    spans["train_step.backward"] = [
+        (lo[1], hi[0]) for lo, hi in zip(spans.get("train_step.losses", []),
+                                         spans.get("train_step.adam", []))]
+    busy = lambda w: sum(max(0.0, min(e, w[1]) - max(s, w[0])) for s, e in kernels)
+    table = {}
+    for k in names:
+        w = spans.get(k, [])
+        table[k] = {"host_ms": sum(e - s for s, e in host[k]) / 1e3 / reps,
+                    "device_span_ms": sum(e - s for s, e in w) / 1e3 / reps,
+                    "device_busy_ms": sum(busy(x) for x in w) / 1e3 / reps}
+    return table
+
+
+def train_phase(ts, dev):
+    """TRAIN_STEPS steps through train_step (the training path), a profiled
+    window of 3 more, then the descent check on fixed draws."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, losses, times = ts.state, [], []
+    reset_launches()
+    for i in range(TRAIN_STEPS):
+        before = read_launches()
+        draws = TS.make_draws(ts.gen, ts.mlp, ts.cfg)
+        s_ev, e_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s_ev.record()
+        state, aux = TS.train_step(state, *ts.args(draws), device=dev)
+        e_ev.record()
+        torch.cuda.synchronize()
+        times.append(s_ev.elapsed_time(e_ev))
+        losses.append(float(aux.loss))
+        after = read_launches()
+        missing = [k for k in after if after[k] - before[k] < 1]
+        if missing:
+            raise AssertionError(f"train step {i}: no launch of {missing}")
+        if not np.isfinite(losses[-1]):
+            raise AssertionError(f"train step {i}: loss {losses[-1]}")
+        if int(aux.overflow) != 0:
+            raise AssertionError(f"train step {i}: entry overflow {int(aux.overflow)}")
+        if not params_finite(state):
+            raise AssertionError(f"train step {i}: non-finite parameters")
+        if not bool((state.gauss_state.xyz_grad_accum[aux.visibility] > 0).any()):
+            raise AssertionError(f"train step {i}: no densification statistic on visible rows")
+    launches = read_launches()
+    peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
+
+    # Stage breakdown and device busy share of whole steps, back to back.
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    reps = 3
+    draws = [TS.make_draws(ts.gen, ts.mlp, ts.cfg) for _ in range(reps)]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for d in draws:
+            state, _ = TS.train_step(state, *ts.args(d), device=dev)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    dev_events = device_events(prof)
+    busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3 / reps
+    stages = stage_table(prof, reps)
+    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:10]
+
+    # Descent at full width: from the starting state, TRAIN_STEPS steps that
+    # all reuse one set of draws, so the loss differs between steps only by
+    # the parameters.
+    fixed = TS.make_draws(torch.Generator(device=dev).manual_seed(1), ts.mlp, ts.cfg)
+    state, fixed_losses = ts.state, []
+    for _ in range(TRAIN_STEPS + 1):   # the last call reads the loss after TRAIN_STEPS updates
+        state, aux = TS.train_step(state, *ts.args(fixed), device=dev)
+        fixed_losses.append(float(aux.loss))
+    if not fixed_losses[-1] < fixed_losses[0]:
+        raise AssertionError(f"loss on fixed draws did not fall: {fixed_losses}")
+
+    record = {"phase": "train", "steps": TRAIN_STEPS, "resolution": [RES, RES],
+              "gaussians": N_GAUSS + N_SKY, "channels": 13, "max_dup": ts.rcfg.max_dup,
+              "target": "port render under embedding 1; sky and occluder masks all ones",
+              "losses": losses, "step_ms": times,
+              "ms_per_step_median_2_to_6": float(np.median(times[1:])),
+              "launches": launches, "peak_memory_mb": peak_mb,
+              "profiled_stages_per_step": stages,
+              "profiled_step_wall_ms": wall_ms, "profiled_device_busy_ms": busy_ms,
+              "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms > 0 else None,
+              # The profiler slows the host's dispatch; against the unprofiled
+              # step time (CUDA events) the same device work leaves less idle.
+              "device_idle_share_of_unprofiled_step":
+                  1.0 - busy_ms / float(np.median(times[1:])) if busy_ms > 0 else None,
+              "kernels_per_step": sum(e.count for e in dev_events) / reps,
+              "top_device_ms_per_step": {e.key[:60]: e.self_device_time_total / 1e3 / reps
+                                         for e in top},
+              "fixed_draw_losses": fixed_losses}
+    return launches, record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -419,23 +793,40 @@ def main() -> int:
     report({"phase": "device", "kind": torch.cuda.get_device_name(0),
             "torch": torch.__version__, "cuda": torch.version.cuda, "kernel_build_s": build_s})
 
-    with torch.inference_mode():
-        t0 = time.perf_counter()
+    t0 = time.perf_counter()
+    with torch.no_grad():   # plain tensors: the training phase differentiates them
         host, cam0, demand = build_host(dev)
-        torch.cuda.synchronize()
-        report({"phase": "scene", "gaussians": N_GAUSS + N_SKY, "resolution": [RES, RES],
-                "entry_demand": demand, "max_dup": host.rcfg.max_dup,
-                "build_s": time.perf_counter() - t0})
+    torch.cuda.synchronize()
+    report({"phase": "scene", "gaussians": N_GAUSS + N_SKY, "resolution": [RES, RES],
+            "entry_demand": demand, "max_dup": host.rcfg.max_dup,
+            "build_s": time.perf_counter() - t0})
+    with torch.inference_mode():
         table, ref_img, record = kernels_phase(host, dev)
         report(record)
         report(stages_phase(host, dev))
-        launches, record = serve_phase(host, cam0, ref_img, dev)
+        serve_launches, record = serve_phase(host, cam0, ref_img, dev)
         report(record)
         report(reference_phase(dev))
-    for entry, n in zip(table, launches):
-        entry["launches"] = n
+
+    ts = TrainSetup(host, cam0, dev)
+    train_table, record = train_kernels_phase(ts, dev)
+    report(record)
+    train_launches, record = train_phase(ts, dev)
+    report(record)
+
+    # Launches on each main path: serving (A, B) and training (A, B, C, D).
+    by_path = {"expand_entries": (serve_launches[0], train_launches["expand_entries"]),
+               "composite_forward": (serve_launches[1], 0),
+               "composite_forward_c13": (0, train_launches["composite_forward"]),
+               "composite_backward": (0, train_launches["composite_backward"]),
+               "segment_sum_rows": (0, train_launches["segment_sum_rows"])}
+    table += train_table
+    for entry in table:
+        serve_n, train_n = by_path[entry["name"]]
+        entry["launches"] = serve_n + train_n
+        entry["launches_by_path"] = {"serve": serve_n, "train": train_n}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
+            "bound_ms", "bound_by", "library_ms", "launches_by_path")
     emit({"kernels": [{k: e[k] for k in keys} for e in table]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

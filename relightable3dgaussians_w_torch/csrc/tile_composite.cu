@@ -1,9 +1,12 @@
-// Tile compositing forward: depth-ordered alpha blending of each 16x16 tile.
+// Tile compositing, forward and backward: depth-ordered alpha blending of each
+// 16x16 tile and its analytic gradient.
 //
-// Replaces the TPU kernel `_fwd_kernel` of the JAX package
+// The forward replaces the TPU kernel `_fwd_kernel` of the JAX package
 // (relightable3dgaussians_w_tpu/ops/pallas/tile_composite.py), i.e. the
 // reference's `renderCUDA` forward. Plain version: ops/composite.py
-// `composite_forward`.
+// `composite_forward`. The backward (second half of this file) replaces
+// `_bwd_kernel` / `_bwd_one_tile` of the same file; plain version
+// `composite_backward`.
 //
 // What bounds it on an H100: the per-(pixel, entry) arithmetic, ~25 float32
 // operations and one expf for every pair a pixel visits before it saturates;
@@ -127,6 +130,189 @@ cudaError_t launch(const float* feat, int64_t n_rows, int C, const int64_t* ts,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------------ backward
+//
+// Per-entry gradients (mean2d x/y, conic a/b/c, opacity, C colors) from the
+// pixel cotangents gbar [T, 256, C] and g_Tfinal. With S_g the suffix sum of
+// w (c . gbar) over the entries after g and B = bg . gbar + g_Tfinal,
+//   dL/dalpha_g = T_g (c_g . gbar) - (S_g + T_final * B) / (1 - alpha_g),
+// and S_g = total - Q_g, where total = sum_g w_g (c_g . gbar) comes from the
+// forward's output ((out - T_final * bg) . gbar, computed by the wrapper with
+// T_final * B) and Q_g is the inclusive prefix, carried in a register. The
+// saturation alpha = min(0.99, op * G) does not mask the gradient (reference
+// semantics).
+//
+// What bounds it on an H100: the per-(pixel, entry) arithmetic, about 60
+// float32 operations and one expf for every pair a pixel visits, and the
+// reduction of each entry's 6 + C gradients over the tile's 256 pixels.
+// Design: the forward's layout (one block per tile, one thread per pixel,
+// entries staged in shared memory, here in batches of 32). Each thread replays
+// the forward's own recurrence (same coefficients, same op order, expf, same
+// alpha and termination tests, FMA contraction off for the whole file), so its
+// include and skip decisions equal the forward's bit for bit. The TPU kernel's
+// log-space prefix and Dekker splits were MXU workarounds and are gone. Each
+// entry's 6 + C per-pixel terms are summed over the tile by a fixed-order
+// reduction: a warp shuffle tree, one partial per warp in shared memory, then
+// the 8 partials in warp order; a warp in which no pixel contributes writes
+// zeros and skips the shuffles. No atomics, so two launches give the same
+// bits. The block leaves once every pixel has terminated; the rows it never
+// reaches are zero because the wrapper allocates d_feat with zeros.
+
+constexpr int kBwdBatch = 32;            // entries per shared-memory batch
+constexpr int kWarps = kPixels / 32;     // 8
+constexpr int kBwdCoef = 12;             // q0 qx qy qxx qyy qxy op mx my ca cb cc
+
+template <int MAXC>
+__global__ void __launch_bounds__(kPixels) composite_bwd_kernel(
+    const float* __restrict__ feat, int64_t n_rows, int C,
+    const int64_t* __restrict__ tile_start, const int64_t* __restrict__ tile_end,
+    const float* __restrict__ g_tiles, const float* __restrict__ total,
+    const float* __restrict__ bterm, const float* __restrict__ tfin, int grid_x,
+    float* __restrict__ d_feat) {
+  extern __shared__ float smem[];
+  const int F = 6 + C;
+  const int S = kBwdCoef + C;
+  float* coef = smem;                     // [kBwdBatch][S]
+  float* part = smem + kBwdBatch * S;     // [kWarps][kBwdBatch][F]
+  const int t = blockIdx.x;
+  const int p = threadIdx.x;
+  const int lane = p & 31;
+  const int warp = p >> 5;
+  const float tx0 = (float)((t % grid_x) * kTile);
+  const float ty0 = (float)((t / grid_x) * kTile);
+  const float px = (float)(p % kTile);
+  const float py = (float)(p / kTile);
+  const float px2 = px * px;
+  const float py2 = py * py;
+  const float pp = px * py;
+  const float pxa = tx0 + px;  // absolute pixel coordinates (exact integers)
+  const float pya = ty0 + py;
+
+  const int64_t o = (int64_t)t * kPixels + p;
+  float gb[MAXC];
+#pragma unroll
+  for (int c = 0; c < MAXC; ++c) gb[c] = c < C ? g_tiles[o * C + c] : 0.f;
+  const float tot = total[o];
+  const float TB = tfin[o] * bterm[o];
+
+  const int64_t start = tile_start[t];
+  const int64_t end = tile_end[t] < n_rows ? tile_end[t] : n_rows;
+
+  float T = 1.f;
+  float Q = 0.f;
+  bool done = false;
+
+  for (int64_t b = start; b < end; b += kBwdBatch) {
+    if (__syncthreads_count(done) == kPixels) break;
+    const int nb = (end - b) < kBwdBatch ? (int)(end - b) : kBwdBatch;
+    if (p < nb) {
+      const float* row = feat + (b + p) * F;
+      const float ca = row[2], cb = row[3], cc = row[4];
+      const float mxl = row[0] - tx0;
+      const float myl = row[1] - ty0;
+      float* s = coef + p * S;
+      // entry_quad_coeffs, same op order as the forward
+      s[0] = -0.5f * (ca * (mxl * mxl) + cc * (myl * myl)) - cb * (mxl * myl);
+      s[1] = ca * mxl + cb * myl;
+      s[2] = cc * myl + cb * mxl;
+      s[3] = -0.5f * ca;
+      s[4] = -0.5f * cc;
+      s[5] = -cb;
+      s[6] = row[5];
+      s[7] = row[0];
+      s[8] = row[1];
+      s[9] = ca;
+      s[10] = cb;
+      s[11] = cc;
+      for (int c = 0; c < C; ++c) s[kBwdCoef + c] = row[6 + c];
+    }
+    __syncthreads();
+    for (int j = 0; j < nb; ++j) {
+      const float* s = coef + j * S;
+      float v[6 + MAXC];
+#pragma unroll
+      for (int k = 0; k < 6 + MAXC; ++k) v[k] = 0.f;
+      bool contrib = false;
+      if (!done) {
+        // power_separable, same op order as the forward
+        const float f = s[0] + s[1] * px + s[3] * px2;
+        const float g = s[2] * py + s[4] * py2;
+        const float power = (f + g) + s[5] * pp;
+        if (!(power > 0.f)) {
+          const float G = expf(power);
+          const float alpha = fminf(kAlphaSat, s[6] * G);
+          if (!(alpha < kAlphaMin)) {
+            const float test_T = T * (1.f - alpha);
+            if (test_T < kTEps) {
+              done = true;
+            } else {
+              contrib = true;
+              const float w = alpha * T;
+              float cdotg = 0.f;
+#pragma unroll
+              for (int c = 0; c < MAXC; ++c)
+                if (c < C) cdotg += s[kBwdCoef + c] * gb[c];
+              Q += w * cdotg;
+              const float d_alpha = T * cdotg - ((tot - Q) + TB) / (1.f - alpha);
+              const float dG = s[6] * d_alpha;
+              const float dx = s[7] - pxa;
+              const float dy = s[8] - pya;
+              const float gdx = G * dx;
+              const float gdy = G * dy;
+              v[0] = dG * (-(gdx * s[9] + gdy * s[10]));
+              v[1] = dG * (-(gdy * s[11] + gdx * s[10]));
+              v[2] = -0.5f * gdx * dx * dG;
+              v[3] = -(gdx * dy) * dG;
+              v[4] = -0.5f * gdy * dy * dG;
+              v[5] = G * d_alpha;
+#pragma unroll
+              for (int c = 0; c < MAXC; ++c)
+                if (c < C) v[6 + c] = w * gb[c];
+              T = test_T;
+            }
+          }
+        }
+      }
+      float* dst = part + (warp * kBwdBatch + j) * F;
+      if (__any_sync(0xffffffffu, contrib)) {
+#pragma unroll
+        for (int k = 0; k < 6 + MAXC; ++k) {
+          if (k < F) {
+            float x = v[k];
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
+            if (lane == 0) dst[k] = x;
+          }
+        }
+      } else if (lane == 0) {
+        for (int k = 0; k < F; ++k) dst[k] = 0.f;
+      }
+    }
+    __syncthreads();
+    // Sum the warp partials in warp order; entry j's row is b + j.
+    for (int i = p; i < nb * F; i += kPixels) {
+      const int j = i / F;
+      const int k = i - j * F;
+      float acc = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) acc += part[(w * kBwdBatch + j) * F + k];
+      d_feat[b * F + i] = acc;
+    }
+  }
+}
+
+template <int MAXC>
+cudaError_t launch_bwd(const float* feat, int64_t n_rows, int C, const int64_t* ts,
+                       const int64_t* te, const float* g_tiles, const float* total,
+                       const float* bterm, const float* tfin, int grid_x, int num_tiles,
+                       float* d_feat, cudaStream_t stream) {
+  const size_t smem = ((size_t)kBwdBatch * (kBwdCoef + C) +
+                       (size_t)kWarps * kBwdBatch * (6 + C)) * sizeof(float);
+  composite_bwd_kernel<MAXC><<<num_tiles, kPixels, smem, stream>>>(
+      feat, n_rows, C, ts, te, g_tiles, total, bterm, tfin, grid_x, d_feat);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -149,6 +335,32 @@ int r3dgw_composite_forward(const void* feat, int64_t n_rows, int C, const void*
   if (C >= 1 && C <= 4) return (int)launch<4>(f, n_rows, C, ts, te, b, grid_x, num_tiles, o, tf, s);
   if (C >= 1 && C <= 16) return (int)launch<16>(f, n_rows, C, ts, te, b, grid_x, num_tiles, o, tf, s);
   if (C >= 1 && C <= 32) return (int)launch<32>(f, n_rows, C, ts, te, b, grid_x, num_tiles, o, tf, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// feat [n_rows, 6 + C] f32, tile ranges [num_tiles] i64, g_tiles [num_tiles, 256, C]
+// f32, total / bterm / tfin [num_tiles, 256] f32 -> d_feat [n_rows, 6 + C] f32,
+// which must hold zeros on entry (rows the kernel never reaches stay zero).
+// Returns cudaGetLastError() (cudaErrorInvalidValue for C outside 1..32).
+int r3dgw_composite_backward(const void* feat, int64_t n_rows, int C, const void* tile_start,
+                             const void* tile_end, const void* g_tiles, const void* total,
+                             const void* bterm, const void* tfin, int grid_x, int num_tiles,
+                             void* d_feat, void* stream) {
+  auto f = (const float*)feat;
+  auto ts = (const int64_t*)tile_start;
+  auto te = (const int64_t*)tile_end;
+  auto g = (const float*)g_tiles;
+  auto tot = (const float*)total;
+  auto bt = (const float*)bterm;
+  auto tf = (const float*)tfin;
+  auto d = (float*)d_feat;
+  auto s = (cudaStream_t)stream;
+  if (C >= 1 && C <= 4)
+    return (int)launch_bwd<4>(f, n_rows, C, ts, te, g, tot, bt, tf, grid_x, num_tiles, d, s);
+  if (C >= 1 && C <= 16)
+    return (int)launch_bwd<16>(f, n_rows, C, ts, te, g, tot, bt, tf, grid_x, num_tiles, d, s);
+  if (C >= 1 && C <= 32)
+    return (int)launch_bwd<32>(f, n_rows, C, ts, te, g, tot, bt, tf, grid_x, num_tiles, d, s);
   return (int)cudaErrorInvalidValue;
 }
 

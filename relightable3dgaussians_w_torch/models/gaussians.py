@@ -3,7 +3,9 @@ package's `models/gaussians.py` (pool layout, activations, construction).
 
 The pool has a fixed capacity with an `alive` mask; foreground and sky Gaussians
 share rows, and `is_sky` selects between `xyz` and the sphere parameterization
-(theta, phi, radius, center). Densify, prune and grow arrive with training.
+(theta, phi, radius, center). The training step adds the densification
+statistics and the opacity reset; densify, prune and grow arrive with the
+trainer.
 """
 
 from __future__ import annotations
@@ -189,3 +191,37 @@ def augment_with_sky(params: GaussianParams, state: GaussianState,
     state = state._replace(alive=upd(state.alive, True), is_sky=upd(state.is_sky, True),
                            sky_center=f32(sky_center))
     return params, state
+
+
+# -------------------------------------------------------------- density control
+
+
+def add_densification_stats(state: GaussianState, mean2d_grad_ndc: torch.Tensor,
+                            visible: torch.Tensor, radii: torch.Tensor) -> GaussianState:
+    """Accumulate ||dL/dmean2D|| (NDC units) over visible live Gaussians and track
+    the largest screen radius."""
+    norm = torch.linalg.vector_norm(mean2d_grad_ndc[:, :2], dim=-1)
+    upd = visible & state.alive
+    return state._replace(
+        xyz_grad_accum=state.xyz_grad_accum + torch.where(upd, norm, 0.0),
+        denom=state.denom + upd.to(state.denom.dtype),
+        max_radii2d=torch.where(upd, torch.maximum(state.max_radii2d, radii.to(torch.float32)),
+                                state.max_radii2d),
+    )
+
+
+def reset_opacity(params: GaussianParams, opt_moments):
+    """Clamp opacity to <= 0.01 and zero its optimizer moments.
+
+    opt_moments: a tuple of moment trees; the GaussianParams among them get a
+    zero opacity moment, the others pass through."""
+    new_op = inverse_sigmoid(torch.clamp_max(torch.sigmoid(params.opacity), 0.01))
+    params = params._replace(opacity=new_op)
+    opt_moments = tuple(
+        m._replace(opacity=torch.zeros_like(m.opacity)) if isinstance(m, GaussianParams) else m
+        for m in opt_moments)
+    return params, opt_moments
+
+
+def num_alive(state: GaussianState) -> torch.Tensor:
+    return torch.sum(state.alive)

@@ -13,13 +13,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+KEEP_PROB = 0.8  # Dropout(0.2)
+
 
 class MLPNet(nn.Module):
     """embedding -> (envlight SH [(deg_envl+1)^2, 3], sky SH [(deg_sky+1)^2, 3]).
 
     Trunk: Linear(256) + Dropout(0.2) + ReLU, Linear(256) + ReLU, Linear(128) + ReLU;
-    sky head: Linear; envlight head: Linear(128) + ReLU + Linear. Dropout is active
-    only in training mode; serving runs the module in eval mode.
+    sky head: Linear; envlight head: Linear(128) + ReLU + Linear. The dropout
+    draws no random numbers itself: the training step passes its keep-mask, and
+    without one (serving) the layer passes its input through.
     """
 
     def __init__(self, sh_degree_envl: int = 4, sh_degree_sky: int = 1,
@@ -41,10 +44,14 @@ class MLPNet(nn.Module):
                 lin.weight.copy_(w / math.sqrt(lin.in_features))
                 lin.bias.zero_()
 
-    def forward(self, e: torch.Tensor):
+    def forward(self, e: torch.Tensor, keep: torch.Tensor | None = None):
+        """keep: optional bool keep-mask broadcastable to [..., dense_layer_size]
+        for the dropout after the first layer; kept units are scaled by 1/0.8
+        (inverted dropout, as flax does)."""
         dense = self.dense
         x = dense[0](e)
-        x = F.dropout(x, 0.2, training=self.training)
+        if keep is not None:
+            x = torch.where(keep, x / KEEP_PROB, 0.0)
         x = F.relu(x)
         x = F.relu(dense[1](x))
         base = F.relu(dense[2](x))

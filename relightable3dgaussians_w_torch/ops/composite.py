@@ -1,9 +1,10 @@
-"""Depth-ordered alpha compositing over 16x16 tiles: the plain PyTorch version.
+"""Depth-ordered alpha compositing over 16x16 tiles: the plain PyTorch versions.
 
-Port of the JAX package's `ops/composite.py` forward. It is the plain version of
-the hand-written CUDA compositor (`csrc/tile_composite.cu`, wrapped by
-`ops/cuda/tile_composite.py`): the CPU path runs it, and the card compares the
-kernel with it. It composites over the flat sorted entry list addressed by
+Port of the JAX package's `ops/composite.py` (`composite_forward`,
+`composite_backward`). These are the plain versions of the hand-written CUDA
+compositor kernels (`csrc/tile_composite.cu`, wrapped by
+`ops/cuda/tile_composite.py`): the CPU path runs them, and the card compares the
+kernels with them. They work over the flat sorted entry list addressed by
 `tile_start` / `tile_end`, with no per-tile depth cap.
 
 The per-pixel front-to-back loop is a cumulative product over each tile's
@@ -11,6 +12,12 @@ entries: with effective alphas a_g (zero where the reference `continue`s: power
 > 0 or alpha < 1/255), P_g = prod_{j<=g}(1 - a_j), the termination
 `T*(1-alpha) < 1e-4` is the prefix predicate P_g >= 1e-4, and the weights are
 w_g = include_g * a_g * P_{g-1}.
+
+The backward is closed-form: with S_g = sum_{j>g} w_j (c_j . gbar), the suffix
+sum, and B = bg . gbar + gbar_Tfinal,
+dL/da_g = P_{g-1} (c_g . gbar) - (S_g + T_final * B) / (1 - a_g); the gradient of
+the saturation alpha = min(0.99, op * G) is not masked, as in the reference.
+Each entry's gradient row is written to its own slot: no atomics.
 
 The skip predicate power > 0 is a discontinuity of height ~opacity, so the
 kernel and this version compute power with the same scalar op order:
@@ -55,7 +62,8 @@ def power_separable(q, pv, pv2, pp, tile_f, rep_g):
 
 
 def _tile_batch(feat, starts, counts, tids, grid_x, tile, length):
-    """alpha [B, L, P] and colors [B, L, C] of a batch of tiles, L = length."""
+    """alpha [B, L, P] of a batch of tiles (L = length) and a dict of what the
+    backward needs: entry rows, slot indices, validity, G, skip."""
     D = feat.shape[0]
     dev = feat.device
     lane = torch.arange(length, device=dev)
@@ -79,7 +87,8 @@ def _tile_batch(feat, starts, counts, tids, grid_x, tile, length):
     alpha_raw = torch.clamp_max(rows[..., 5:6] * G, ALPHA_SAT)
     skip = (power > 0.0) | (alpha_raw < ALPHA_MIN) | ~valid[..., None]
     alpha = torch.where(skip, 0.0, alpha_raw)
-    return alpha, rows[..., 6:]
+    return alpha, dict(rows=rows, colors=rows[..., 6:], idx=idx, valid=valid, G=G, skip=skip,
+                       tx0=tx0, ty0=ty0)
 
 
 def _batches(counts: np.ndarray, per_tile: int, budget: int):
@@ -119,16 +128,85 @@ def composite_forward(feat: torch.Tensor, tile_start: torch.Tensor, tile_end: to
     counts = tile_end - tile_start
     for t0, t1, length in _batches(counts.cpu().numpy(), P, budget):
         tids = torch.arange(t0, t1, device=dev)
-        alpha, colors = _tile_batch(feat, tile_start[t0:t1], counts[t0:t1], tids,
-                                    grid_x, tile, length)
-        one_m = 1.0 - alpha
-        P_inc = torch.cumprod(one_m, dim=1)                         # [B, L, P]
-        P_prev = torch.cat([torch.ones_like(P_inc[:, :1]), P_inc[:, :-1]], dim=1)
-        include = P_inc >= T_EPS
-        w = torch.where(include, alpha * P_prev, 0.0)
+        alpha, aux = _tile_batch(feat, tile_start[t0:t1], counts[t0:t1], tids,
+                                 grid_x, tile, length)
+        colors = aux["colors"]
+        one_m, P_prev, include, w, T_fin = _transmittance(alpha)
         color = torch.stack([(w * colors[..., c:c + 1]).sum(dim=1) for c in range(C)],
                             dim=-1)                                 # [B, P, C]
-        T_fin = torch.prod(torch.where(include, one_m, 1.0), dim=1)  # [B, P]
         out_rgb[t0:t1] = color + T_fin[..., None] * bg
         out_tfin[t0:t1] = T_fin
     return out_rgb, out_tfin
+
+
+def _transmittance(alpha):
+    """The front-to-back recurrence of a batch: (1 - alpha, P_{g-1}, include,
+    weights w [B, L, P], T_final [B, P])."""
+    one_m = 1.0 - alpha
+    P_inc = torch.cumprod(one_m, dim=1)                             # [B, L, P]
+    P_prev = torch.cat([torch.ones_like(P_inc[:, :1]), P_inc[:, :-1]], dim=1)
+    include = P_inc >= T_EPS
+    w = torch.where(include, alpha * P_prev, 0.0)
+    T_fin = torch.prod(torch.where(include, one_m, 1.0), dim=1)     # [B, P]
+    return one_m, P_prev, include, w, T_fin
+
+
+def composite_backward(feat: torch.Tensor, tile_start: torch.Tensor, tile_end: torch.Tensor,
+                       bg: torch.Tensor, grid_x: int, grid_y: int, g_tiles: torch.Tensor,
+                       g_tfin: torch.Tensor, tile: int = 16, budget: int = 1 << 24):
+    """Analytic backward of `composite_forward`.
+
+    Args:
+        g_tiles: [T, P, C] cotangent of the tile colors; g_tfin: [T, P] of T_final.
+    Returns:
+        (d_feat [D, 6 + C], zero on rows no tile range reaches and on entries
+        past a pixel's termination; d_bg [C]).
+    """
+    P, C = tile * tile, feat.shape[1] - 6
+    dev = feat.device
+    d_feat = torch.zeros_like(feat)
+    d_bg = torch.zeros((C,), dtype=torch.float32, device=dev)
+    counts = tile_end - tile_start
+    for t0, t1, length in _batches(counts.cpu().numpy(), P, budget):
+        tids = torch.arange(t0, t1, device=dev)
+        alpha, aux = _tile_batch(feat, tile_start[t0:t1], counts[t0:t1], tids,
+                                 grid_x, tile, length)
+        one_m, P_prev, include, w, T_fin = _transmittance(alpha)
+        colors, rows = aux["colors"], aux["rows"]
+        gbar = g_tiles[t0:t1]                                       # [B, P, C]
+        cdotg = colors[..., 0:1] * gbar[:, None, :, 0]
+        for c in range(1, C):
+            cdotg = cdotg + colors[..., c:c + 1] * gbar[:, None, :, c]  # [B, L, P]
+        Q = torch.cumsum(w * cdotg, dim=1)                          # inclusive prefix
+        S = Q[:, -1:] - Q                                           # suffix over j > g
+        Bv = gbar[..., 0] * bg[0]
+        for c in range(1, C):
+            Bv = Bv + gbar[..., c] * bg[c]
+        Bv = Bv + g_tfin[t0:t1]                                     # [B, P]
+        contrib = include & ~aux["skip"]
+        d_alpha = torch.where(contrib,
+                              P_prev * cdotg - (S + (T_fin * Bv)[:, None, :]) / one_m, 0.0)
+        G = aux["G"]
+        op = rows[..., 5:6]
+        dG = op * d_alpha                                           # saturation unmasked
+        pix = torch.arange(P, device=dev)
+        px = aux["tx0"] + (pix % tile).to(torch.float32)            # [B, P] absolute
+        py = aux["ty0"] + (pix // tile).to(torch.float32)
+        dx = rows[..., 0:1] - px[:, None, :]                        # [B, L, P]
+        dy = rows[..., 1:2] - py[:, None, :]
+        gdx = G * dx
+        gdy = G * dy
+        ca, cb, cc = rows[..., 2:3], rows[..., 3:4], rows[..., 4:5]
+        d_rows = [
+            torch.sum(dG * (-(gdx * ca + gdy * cb)), dim=-1),        # mean2d x
+            torch.sum(dG * (-(gdy * cc + gdx * cb)), dim=-1),        # mean2d y
+            torch.sum(-0.5 * gdx * dx * dG, dim=-1),                 # conic a
+            torch.sum(-(gdx * dy) * dG, dim=-1),                     # conic b
+            torch.sum(-0.5 * gdy * dy * dG, dim=-1),                 # conic c
+            torch.sum(G * d_alpha, dim=-1),                          # opacity
+        ] + [torch.sum(w * gbar[:, None, :, c], dim=-1) for c in range(C)]
+        d_rows = torch.stack(d_rows, dim=-1)                        # [B, L, 6 + C]
+        valid = aux["valid"]
+        d_feat[aux["idx"][valid]] = d_rows[valid]
+        d_bg += torch.sum(T_fin[..., None] * gbar, dim=(0, 1))
+    return d_feat, d_bg

@@ -31,6 +31,7 @@ KERNELS = {
     # FMA contraction off: the compositor's power chain must round every product
     # and sum as the plain version does (ops/composite.py).
     "tile_composite": ("tile_composite.cu", ["--fmad=false"]),
+    "segment_sum": ("segment_sum.cu", []),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -1,7 +1,12 @@
-"""Wrapper of the tile-compositing forward kernel (`csrc/tile_composite.cu`).
+"""Wrappers of the tile-compositing kernels (`csrc/tile_composite.cu`).
 
-Replaces the JAX package's Pallas `ops/pallas/tile_composite.py` `_fwd_kernel`;
-the plain version is `ops/composite.py` `composite_forward`.
+`composite_forward` replaces the JAX package's Pallas
+`ops/pallas/tile_composite.py` `_fwd_kernel` and `composite_backward` its
+`_bwd_kernel`; the plain versions are `ops/composite.py` `composite_forward` and
+`composite_backward`. `composite_tiles` is the differentiable compositor (the
+JAX package's `wrapper.composite_tiles_pallas` / `composite.composite_tiles`):
+forward and backward are the two kernels on the card and the plain versions on
+the CPU.
 """
 
 from __future__ import annotations
@@ -13,7 +18,8 @@ import torch
 
 from . import build
 
-launches = 0  # kernel launches since the last reset (set to 0 to reset)
+launches = 0           # forward kernel launches since the last reset (set to 0 to reset)
+backward_launches = 0  # backward kernel launches since the last reset
 
 TILE = 16       # the kernel runs one 256-thread block per 16x16 tile
 MAX_CHANNELS = 32
@@ -28,7 +34,15 @@ def _lib():
     lib = build.load("tile_composite")
     lib.r3dgw_composite_forward.argtypes = [_P, _I64, _I, _P, _P, _P, _I, _I, _P, _P, _P]
     lib.r3dgw_composite_forward.restype = ctypes.c_int
+    lib.r3dgw_composite_backward.argtypes = [_P, _I64, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                                             _P, _P]
+    lib.r3dgw_composite_backward.restype = ctypes.c_int
     return lib
+
+
+def _check(what, name, t, dtype, shape, dev):
+    if t.dtype != dtype or tuple(t.shape) != shape or t.device != dev or not t.is_contiguous():
+        raise ValueError(f"{what}: {name} must be a contiguous {dtype} {list(shape)} tensor on {dev}")
 
 
 def composite_forward(feat: torch.Tensor, tile_start: torch.Tensor, tile_end: torch.Tensor,
@@ -77,3 +91,85 @@ def composite_forward(feat: torch.Tensor, tile_start: torch.Tensor, tile_end: to
     build.check(lib, err, "composite_forward launch")
     launches += 1
     return out_rgb, out_tfin
+
+
+def composite_backward(feat: torch.Tensor, tile_start: torch.Tensor, tile_end: torch.Tensor,
+                       bg: torch.Tensor, tiles_rgb: torch.Tensor, tiles_tfin: torch.Tensor,
+                       g_tiles: torch.Tensor, g_tfin: torch.Tensor, grid_x: int, grid_y: int,
+                       tile: int = 16):
+    """Analytic backward of `composite_forward`.
+
+    Args:
+        feat, tile_start, tile_end, bg: the forward's inputs.
+        tiles_rgb [T, P, C], tiles_tfin [T, P]: the forward's outputs.
+        g_tiles [T, P, C], g_tfin [T, P]: their cotangents.
+    Returns:
+        (d_feat [D, 6 + C], d_bg [C]).
+    """
+    if not feat.is_cuda:
+        from ..composite import composite_backward as plain
+
+        return plain(feat, tile_start, tile_end, bg, grid_x, grid_y, g_tiles, g_tfin, tile)
+    global backward_launches
+    dev = feat.device
+    T = grid_x * grid_y
+    if tile != TILE:
+        raise ValueError(f"composite_backward kernel needs tile={TILE}, got {tile}")
+    if feat.dtype != torch.float32 or feat.ndim != 2 or not feat.is_contiguous():
+        raise ValueError("composite_backward: feat must be a contiguous float32 [D, 6 + C] tensor")
+    C = feat.shape[1] - 6
+    if not 1 <= C <= MAX_CHANNELS:
+        raise ValueError(f"composite_backward: 1..{MAX_CHANNELS} channels supported, got {C}")
+    P = TILE * TILE
+    what = "composite_backward"
+    _check(what, "bg", bg, torch.float32, (C,), dev)
+    for name, t in (("tile_start", tile_start), ("tile_end", tile_end)):
+        _check(what, name, t, torch.int64, (T,), dev)
+    for name, t in (("tiles_rgb", tiles_rgb), ("g_tiles", g_tiles)):
+        _check(what, name, t, torch.float32, (T, P, C), dev)
+    for name, t in (("tiles_tfin", tiles_tfin), ("g_tfin", g_tfin)):
+        _check(what, name, t, torch.float32, (T, P), dev)
+    # Per-pixel scalars, as the JAX package computes them outside its kernel:
+    # total = (out - T_final * bg) . gbar and B = bg . gbar + g_Tfinal.
+    total = ((tiles_rgb - tiles_tfin[..., None] * bg) * g_tiles).sum(-1)
+    bterm = (g_tiles * bg).sum(-1) + g_tfin
+    d_bg = (tiles_tfin[..., None] * g_tiles).sum((0, 1))
+    d_feat = torch.zeros_like(feat)
+    if T == 0:
+        return d_feat, d_bg
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.r3dgw_composite_backward(
+            feat.data_ptr(), feat.shape[0], C, tile_start.data_ptr(), tile_end.data_ptr(),
+            g_tiles.data_ptr(), total.data_ptr(), bterm.data_ptr(), tiles_tfin.data_ptr(),
+            grid_x, T, d_feat.data_ptr(), stream)
+    build.check(lib, err, "composite_backward launch")
+    backward_launches += 1
+    return d_feat, d_bg
+
+
+class _CompositeTiles(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feat, tile_start, tile_end, bg, grid_x, grid_y, tile):
+        tiles_rgb, tiles_tfin = composite_forward(feat, tile_start, tile_end, bg,
+                                                  grid_x, grid_y, tile)
+        ctx.save_for_backward(feat, tile_start, tile_end, bg, tiles_rgb, tiles_tfin)
+        ctx.grid = (grid_x, grid_y, tile)
+        return tiles_rgb, tiles_tfin
+
+    @staticmethod
+    def backward(ctx, g_tiles, g_tfin):
+        feat, tile_start, tile_end, bg, tiles_rgb, tiles_tfin = ctx.saved_tensors
+        with torch.profiler.record_function("composite_tiles.backward"):
+            d_feat, d_bg = composite_backward(feat, tile_start, tile_end, bg, tiles_rgb,
+                                              tiles_tfin, g_tiles.contiguous(),
+                                              g_tfin.contiguous(), *ctx.grid)
+        return d_feat, None, None, d_bg, None, None, None
+
+
+def composite_tiles(feat: torch.Tensor, tile_start: torch.Tensor, tile_end: torch.Tensor,
+                    bg: torch.Tensor, grid_x: int, grid_y: int, tile: int = 16):
+    """Differentiable `composite_forward`: (tiles_rgb, tiles_tfin), with gradients
+    for feat and bg from `composite_backward`."""
+    return _CompositeTiles.apply(feat, tile_start, tile_end, bg, grid_x, grid_y, tile)

@@ -12,6 +12,12 @@ The opacity-aware rect tightening with `skip_alpha` is kept: at 1/255 it drops
 only (Gaussian, tile) pairs that both compositors skip, so the image is
 unchanged; larger values are the serving LOD knob. `row_intervals` (train-only)
 is not ported yet.
+
+The float outputs (mean2d, conic, depth, cov3d) are differentiable with
+autograd. The radius and tile-rect chain is derivative-dead (every consumer is
+an integer), so it runs without autograd: the opacity that feeds the tightening
+gets no gradient from it, as the JAX package's `stop_gradient` says, and no
+0 * inf of a dead sqrt or floor can reach the real gradients.
 """
 
 from __future__ import annotations
@@ -132,6 +138,15 @@ def preprocess(means3d: torch.Tensor, scales: torch.Tensor, quats: torch.Tensor,
     det_inv = 1.0 / torch.where(det_ok, det, 1.0)
     conic = torch.stack([cyy * det_inv, -cxy * det_inv, cxx * det_inv], dim=-1)
 
+    with torch.no_grad():
+        return _rects(mean2d, cxx, cxy, cyy, det, det_ok, in_front, conic, p_view_z, cov3d,
+                      tile, grid_x, grid_y, active, opacities, skip_alpha)
+
+
+def _rects(mean2d, cxx, cxy, cyy, det, det_ok, in_front, conic, p_view_z, cov3d,
+           tile, grid_x, grid_y, active, opacities, skip_alpha) -> PreprocessOut:
+    """Screen radius, visibility and (opacity-tightened) tile rects, in the JAX
+    package's op order; run without autograd (module docstring)."""
     mid = 0.5 * (cxx + cyy)
     disc = torch.sqrt(torch.clamp_min(mid * mid - det, 0.1))
     lambda1 = mid + disc

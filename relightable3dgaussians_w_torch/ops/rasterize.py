@@ -1,11 +1,17 @@
-"""Forward Gaussian rasterizer: preprocess -> bin -> gather -> composite.
+"""Differentiable Gaussian rasterizer: preprocess -> bin -> gather -> composite.
 
-Port of the JAX package's `ops/rasterize.py` forward path (`RasterizerConfig`,
+Port of the JAX package's `ops/rasterize.py` (`RasterizerConfig`,
 `CameraMatrices`, `RasterizeAux`, `_assemble_image`, `rasterize`). On the card
-the expansion and the compositor are the hand-written CUDA kernels of
-`ops/cuda/`; on the CPU their plain PyTorch versions. The TPU layout knobs of
-the JAX config (Pallas chunking, segment alignment, tiles per grid step) have no
-meaning here and are dropped. The backward arrives with the training slice.
+the expansion, the compositor (forward and backward) and the gather's transpose
+are the hand-written CUDA kernels of `ops/cuda/`; on the CPU their plain
+PyTorch versions. Gradients flow with autograd: through preprocess to means,
+scales and quaternions, and through the gather (`ops/segment_sum.gather_rows`)
+and the compositor (`ops/cuda/tile_composite.composite_tiles`) to opacities,
+colors, bg and the optional `mean2d_probe`. The TPU layout knobs of the JAX
+config (Pallas chunking, segment alignment, tiles per grid step) have no meaning
+here and are dropped. Each stage runs inside a `torch.profiler` range
+("rasterize.preprocess", ".binning", ".gather", ".composite"), so a profile
+of any caller splits its time by stage.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from ..device import resolve_device
 from .binning import bin_gaussians
 from .cuda import tile_composite as _composite_kernel
 from .preprocess import preprocess
+from .segment_sum import gather_rows
 
 
 class RasterizerConfig(NamedTuple):
@@ -71,7 +78,7 @@ def _assemble_image(tiles_rgb, tiles_tfin, cfg: RasterizerConfig, channels: int)
 
 def rasterize(means3d, scales, quats, opacities, colors, bg,
               cam: CameraMatrices, cfg: RasterizerConfig, active=None,
-              device: str | torch.device = "cuda"):
+              device: str | torch.device = "cuda", mean2d_probe=None):
     """Render depth-sorted alpha-composited Gaussians.
 
     Args:
@@ -84,6 +91,9 @@ def rasterize(means3d, scales, quats, opacities, colors, bg,
         active: optional [N] bool; False rows are culled.
         device: where to render; inputs are moved there. "cuda" (the default)
             raises when CUDA is absent.
+        mean2d_probe: optional [N, 2] zeros added to the projected centers
+            before the gather; its gradient is the pixel-space dL/dmean2D
+            (multiply by (0.5 W, 0.5 H) for the reference's NDC units).
 
     Returns:
         image: [H, W, C]
@@ -102,19 +112,26 @@ def rasterize(means3d, scales, quats, opacities, colors, bg,
     if opacities.ndim == 2:
         opacities = opacities[:, 0]
 
-    pre = preprocess(
-        means3d, scales, quats, cam.viewmat, cam.projmat, cam.tan_fovx, cam.tan_fovy,
-        cfg.width, cfg.height, cfg.tile, cfg.scale_modifier, active, opacities,
-        skip_alpha=cfg.skip_alpha,
-    )
-    binning = bin_gaussians(pre, cfg.grid_x, cfg.grid_y, cfg.max_dup)
-    # Entry rows in sorted order: mean2d, conic, opacity, colors. Slots past the
-    # real entries carry id 0 and lie outside every tile range.
-    feat_pack = torch.cat([pre.mean2d, pre.conic, opacities[:, None], colors], dim=-1)
-    feat = feat_pack[binning.gauss_id.long()]
-    tiles_rgb, tiles_tfin = _composite_kernel.composite_forward(
-        feat, binning.tile_start, binning.tile_end, bg, cfg.grid_x, cfg.grid_y, cfg.tile)
-    image, tfin = _assemble_image(tiles_rgb, tiles_tfin, cfg, colors.shape[-1])
+    stage = torch.profiler.record_function
+    with stage("rasterize.preprocess"):
+        pre = preprocess(
+            means3d, scales, quats, cam.viewmat, cam.projmat, cam.tan_fovx, cam.tan_fovy,
+            cfg.width, cfg.height, cfg.tile, cfg.scale_modifier, active, opacities,
+            skip_alpha=cfg.skip_alpha,
+        )
+    with stage("rasterize.binning"):
+        binning = bin_gaussians(pre, cfg.grid_x, cfg.grid_y, cfg.max_dup)
+    with stage("rasterize.gather"):
+        mean2d = pre.mean2d if mean2d_probe is None else pre.mean2d + mean2d_probe.to(dev)
+        # Entry rows in sorted order: mean2d, conic, opacity, colors. Slots past
+        # the real entries carry id 0 and lie outside every tile range: no
+        # gradient.
+        feat_pack = torch.cat([mean2d, pre.conic, opacities[:, None], colors], dim=-1)
+        feat = gather_rows(feat_pack, binning.gauss_id, binning.num_entries)
+    with stage("rasterize.composite"):
+        tiles_rgb, tiles_tfin = _composite_kernel.composite_tiles(
+            feat, binning.tile_start, binning.tile_end, bg, cfg.grid_x, cfg.grid_y, cfg.tile)
+        image, tfin = _assemble_image(tiles_rgb, tiles_tfin, cfg, colors.shape[-1])
     aux = RasterizeAux(
         radii=pre.radius,
         visibility=pre.radius > 0,

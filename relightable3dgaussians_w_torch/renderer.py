@@ -1,13 +1,21 @@
-"""The serving render pass: port of the JAX package's `renderer.py`
-`compute_colors` (its `rgb_only=True` branch) and `render_rgb`.
+"""The render passes: port of the JAX package's `renderer.py`.
 
 Per-Gaussian Cook-Torrance SH shading for foreground rows, sky SH color (+0.5,
-clamped at 0) or fixed white for sky rows, then the 3-channel rasterizer. The
-fused 13-21 channel AOV render is a training construct and arrives with the
-training slice.
+clamped at 0) or fixed white for sky rows, then the rasterizer. Serving
+(`render_rgb`) composites the 3 RGB channels. Training (`render`,
+`render_inputs` -> `render_from_inputs`) composites every AOV as a channel of
+one fused pass over the same sorted entry list; the alpha map is 1 - T_final.
+
+Channel layout (with debug=True):
+    0:3  rgb           3:6  diffuse      6:9  specular     9    depth
+    10:13 normal*0.5+0.5  13:16 sky_color  16 roughness    17   metalness
+    18:21 albedo
+debug=False drops channels 13:21 (13 channels).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -15,16 +23,49 @@ from .device import resolve_device
 from .models import gaussians as G
 from .models import light as L
 from .ops.rasterize import rasterize, RasterizerConfig, CameraMatrices
+from .utils.graphics import depth_to_normal
 from .utils.sh import eval_sh
+
+
+class RenderOutput(NamedTuple):
+    render: torch.Tensor          # [H, W, 3]
+    diffuse_color: torch.Tensor   # [H, W, 3]
+    specular_color: torch.Tensor  # [H, W, 3]
+    depth: torch.Tensor           # [H, W]
+    normal: torch.Tensor          # [H, W, 3] in (-1, 1), sky-masked
+    alpha: torch.Tensor           # [H, W]
+    normal_ref: torch.Tensor      # [H, W, 3] depth-derived pseudo ground truth
+    radii: torch.Tensor           # [N]
+    visibility_filter: torch.Tensor  # [N] bool
+    gauss_depth: torch.Tensor     # [N] view z (for the sky depth loss)
+    overflow: torch.Tensor        # [] int64
+    sky_color: torch.Tensor | None = None
+    roughness: torch.Tensor | None = None
+    metalness: torch.Tensor | None = None
+    albedo: torch.Tensor | None = None
+
+
+class RenderInputs(NamedTuple):
+    """The rasterizer's leaf inputs, as `render_inputs` makes them from the
+    parameters."""
+    xyz: torch.Tensor       # [N, 3]
+    scales: torch.Tensor    # [N, 3]
+    quats: torch.Tensor     # [N, 4]
+    opacity: torch.Tensor   # [N, 1]
+    colors: torch.Tensor    # [N, C] fused AOV channels (depth channel filled)
 
 
 def compute_colors(params: G.GaussianParams, state: G.GaussianState,
                    envlight_base: torch.Tensor, sky_sh: torch.Tensor,
                    envlight_sh_degree: int, sky_sh_degree: int,
-                   campos: torch.Tensor, specular: bool = True, fix_sky: bool = False):
-    """Per-Gaussian shaded RGB (the JAX `compute_colors(..., rgb_only=True)`).
+                   campos: torch.Tensor, specular: bool = True, fix_sky: bool = False,
+                   debug: bool = True, rgb_only: bool = True):
+    """Per-Gaussian feature channels.
 
-    Returns (rgb [N, 3], normals [N, 3]).
+    With rgb_only (the default here, the serving call) the shaded RGB; else the
+    fused AOV channels of the module docstring (13, or 21 with debug), the
+    depth channel left zero for `render_inputs` to fill. Returns
+    (colors [N, 3 or C], normals [N, 3]).
     """
     xyz = G.get_xyz(params, state)
     albedo = G.get_albedo(params)
@@ -45,7 +86,22 @@ def compute_colors(params: G.GaussianParams, state: G.GaussianState,
         sky_sh2rgb = eval_sh(sky_sh_degree, sky_sh.transpose(-1, -2), dir_pp_n)
         sky_rgb = torch.clamp_min(sky_sh2rgb + 0.5, 0.0)
 
-    return torch.where(is_sky, sky_rgb, shaded.rgb), normal
+    rgb = torch.where(is_sky, sky_rgb, shaded.rgb)
+    if rgb_only:
+        return rgb, normal
+    diffuse = torch.where(is_sky, 0.0, shaded.diffuse)
+    spec = torch.where(is_sky, 0.0, shaded.specular)
+    depth_feat = torch.zeros_like(xyz[:, :1])   # filled by render_inputs
+    normal_feat = 0.5 * normal + 0.5
+    channels = [rgb, diffuse, spec, depth_feat, normal_feat]
+    if debug:
+        channels += [
+            torch.where(is_sky, sky_rgb, 0.0),
+            torch.where(is_sky, 0.0, kr),
+            torch.where(is_sky, 0.0, km),
+            torch.where(is_sky, torch.ones_like(albedo), albedo),
+        ]
+    return torch.cat(channels, dim=-1), normal
 
 
 def render_rgb(params: G.GaussianParams, state: G.GaussianState,
@@ -80,3 +136,101 @@ def render_rgb(params: G.GaussianParams, state: G.GaussianState,
                               specular, fix_sky)
     return rasterize(xyz, scales, quats, opacity, rgb_g, bg_color, cam, rcfg,
                      active=state.alive, device=dev)
+
+
+def render_inputs(params: G.GaussianParams, state: G.GaussianState,
+                  envlight_base: torch.Tensor, sky_sh: torch.Tensor,
+                  cam: CameraMatrices, envlight_sh_degree: int = 4,
+                  sky_sh_degree: int = 1, specular: bool = True,
+                  fix_sky: bool = False, debug: bool = True) -> RenderInputs:
+    """Parameters + lighting -> activated rasterizer leaf inputs, with the
+    view-space depth in channel 9."""
+    xyz = G.get_xyz(params, state)
+    colors, _ = compute_colors(params, state, envlight_base, sky_sh, envlight_sh_degree,
+                               sky_sh_degree, cam.campos, specular, fix_sky, debug,
+                               rgb_only=False)
+    v = cam.viewmat
+    depth_g = xyz[:, 0] * v[2, 0] + xyz[:, 1] * v[2, 1] + xyz[:, 2] * v[2, 2] + v[2, 3]
+    colors = torch.cat([colors[:, :9], depth_g[:, None], colors[:, 10:]], dim=-1)
+    return RenderInputs(xyz, G.get_scaling(params), G.get_rotation(params),
+                        G.get_opacity(params, state), colors)
+
+
+def render_from_inputs(inp: RenderInputs, state: G.GaussianState, cam: CameraMatrices,
+                       rcfg: RasterizerConfig, bg_color: torch.Tensor, sky_mask: torch.Tensor,
+                       debug: bool = True, mean2d_probe=None,
+                       device: str | torch.device = "cuda") -> RenderOutput:
+    """Rasterize the prepared leaf inputs (all on `device`) and assemble the AOV
+    maps.
+
+    Args:
+        bg_color: [3]; sky_mask: [H, W], 1 = not sky (masks the normal maps).
+        mean2d_probe: optional [N, 2] zeros whose gradient is the pixel-space
+            dL/dmean2D (for densification).
+    """
+    C = inp.colors.shape[-1]
+    bg = torch.cat([bg_color, bg_color, bg_color, bg_color[:1], bg_color])  # rgb diff spec depth normal
+    if debug:
+        bg = torch.cat([bg, bg_color, bg_color[:1], bg_color[:1], bg_color])
+    if bg.shape[0] != C:
+        raise ValueError(f"{C} feature channels, but the debug={debug} layout has {bg.shape[0]}")
+    image, aux = rasterize(
+        inp.xyz, inp.scales, inp.quats, inp.opacity, inp.colors, bg, cam, rcfg,
+        active=state.alive, device=device, mean2d_probe=mean2d_probe)
+    alpha = aux.alpha
+    depth_map = image[..., 9]
+    normal_map = (image[..., 10:13] - 0.5) * 2.0
+    sm = sky_mask[..., None]
+    normal_map = normal_map * sm + (1.0 - sm)
+
+    # Depth-derived reference normal, weighted by the (constant) alpha.
+    c2w = torch.linalg.inv(cam.viewmat)
+    normal_ref = depth_to_normal(depth_map * sky_mask, c2w, cam.tan_fovx, cam.tan_fovy)
+    normal_ref = normal_ref * alpha.detach()[..., None]
+    normal_ref = normal_ref + (1.0 - sm)
+
+    return RenderOutput(
+        render=image[..., 0:3],
+        diffuse_color=image[..., 3:6],
+        specular_color=image[..., 6:9],
+        depth=depth_map,
+        normal=normal_map,
+        alpha=alpha,
+        normal_ref=normal_ref,
+        radii=aux.radii,
+        visibility_filter=aux.visibility,
+        gauss_depth=aux.depth,
+        overflow=aux.overflow,
+        sky_color=image[..., 13:16] if debug else None,
+        roughness=image[..., 16] if debug else None,
+        metalness=image[..., 17] if debug else None,
+        albedo=image[..., 18:21] if debug else None,
+    )
+
+
+def render(params: G.GaussianParams, state: G.GaussianState,
+           envlight_base: torch.Tensor, sky_sh: torch.Tensor,
+           cam: CameraMatrices, rcfg: RasterizerConfig,
+           bg_color: torch.Tensor, sky_mask: torch.Tensor,
+           envlight_sh_degree: int = 4, sky_sh_degree: int = 1,
+           specular: bool = True, fix_sky: bool = False, debug: bool = True,
+           mean2d_probe=None, device: str | torch.device = "cuda") -> RenderOutput:
+    """The full relightable forward pass for one camera (every AOV).
+
+    Args:
+        envlight_base: [(envlight_deg+1)**2, 3] per-image environment SH.
+        sky_sh: [1, (sky_deg+1)**2, 3] sky SH.
+        bg_color: [3]; sky_mask: [H, W], 1 = not sky.
+        device: where to render; inputs are moved there. "cuda" (the default)
+            raises when CUDA is absent.
+    """
+    dev = resolve_device(device)
+    params = G.to_device(params, dev)
+    state = G.to_device(state, dev)
+    cam = CameraMatrices(*[x.to(dev) for x in cam])
+    envlight_base, sky_sh, bg_color, sky_mask = (
+        x.to(dev) for x in (envlight_base, sky_sh, bg_color, sky_mask))
+    inp = render_inputs(params, state, envlight_base, sky_sh, cam, envlight_sh_degree,
+                        sky_sh_degree, specular, fix_sky, debug)
+    return render_from_inputs(inp, state, cam, rcfg, bg_color, sky_mask, debug=debug,
+                              mean2d_probe=mean2d_probe, device=dev)

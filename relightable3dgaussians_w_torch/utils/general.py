@@ -1,13 +1,32 @@
 """General math helpers: port of the JAX package's `utils/general.py` (the parts
-the serving path uses)."""
+the serving path and the training step use)."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 
 def inverse_sigmoid(x):
     return torch.log(x / (1 - x))
+
+
+def expon_lr(step, lr_init, lr_final, lr_delay_steps=0, lr_delay_mult=1.0,
+             max_steps=1_000_000) -> torch.Tensor:
+    """Log-lerp (exponential) lr schedule with an optional sine-eased delay, as a
+    float32 tensor on `step`'s device; 0 when lr_init == lr_final == 0."""
+    step = torch.as_tensor(step).to(torch.float32)
+    if lr_init == 0.0 and lr_final == 0.0:
+        return torch.zeros_like(step)
+    if lr_delay_steps > 0:
+        delay_rate = lr_delay_mult + (1 - lr_delay_mult) * torch.sin(
+            0.5 * math.pi * torch.clamp(step / lr_delay_steps, 0, 1))
+    else:
+        delay_rate = 1.0
+    t = torch.clamp(step / max_steps, 0, 1)
+    log_lerp = torch.exp(math.log(lr_init) * (1 - t) + math.log(lr_final) * t)
+    return torch.where(step < 0, 0.0, delay_rate * log_lerp)
 
 
 def get_minimum_axis(scales: torch.Tensor, R: torch.Tensor) -> torch.Tensor:

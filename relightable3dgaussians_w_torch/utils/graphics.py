@@ -1,6 +1,7 @@
 """Camera / projection / rotation / covariance math.
 
-Port of the JAX package's `utils/graphics.py` (the parts the serving path uses).
+Port of the JAX package's `utils/graphics.py` (the parts the serving path and
+the training step use).
 Math convention throughout: `p_view = viewmat @ [p, 1]`.
 """
 
@@ -67,3 +68,31 @@ def covariance_3d(scales: torch.Tensor, quats: torch.Tensor,
     yz = r10 * r20 * s0 + r11 * r21 * s1 + r12 * r22 * s2
     zz = r20 * r20 * s0 + r21 * r21 * s1 + r22 * r22 * s2
     return torch.stack([xx, xy, xz, yy, yz, zz], dim=-1)
+
+
+def depths_to_points(depth: torch.Tensor, c2w: torch.Tensor, tan_fovx, tan_fovy) -> torch.Tensor:
+    """Backproject a z-depth map [H, W] to world points [H, W, 3] through the
+    camera-to-world matrix `c2w` (principal point at W/2, H/2)."""
+    H, W = depth.shape
+    fx = W / (2.0 * tan_fovx)
+    fy = H / (2.0 * tan_fovy)
+    gy, gx = torch.meshgrid(torch.arange(H, dtype=depth.dtype, device=depth.device),
+                            torch.arange(W, dtype=depth.dtype, device=depth.device),
+                            indexing="ij")
+    dx = (gx - W / 2.0) / fx
+    dy = (gy - H / 2.0) / fy
+    # Ray directions c2w[:3, :3] @ (dx, dy, 1), written out elementwise so no
+    # TF32 product can reach them.
+    R = c2w[:3, :3]
+    rays = [dx * R[i, 0] + dy * R[i, 1] + R[i, 2] for i in range(3)]
+    return torch.stack([depth * rays[i] + c2w[i, 3] for i in range(3)], dim=-1)
+
+
+def depth_to_normal(depth: torch.Tensor, c2w: torch.Tensor, tan_fovx, tan_fovy) -> torch.Tensor:
+    """Central-difference world-space normals [H, W, 3] of a depth map, zero on
+    the 1 px border."""
+    points = depths_to_points(depth, c2w, tan_fovx, tan_fovy)
+    dx = points[2:, 1:-1] - points[:-2, 1:-1]
+    dy = points[1:-1, 2:] - points[1:-1, :-2]
+    n = safe_normalize(torch.linalg.cross(dx, dy, dim=-1))
+    return torch.nn.functional.pad(n, (0, 0, 1, 1, 1, 1))

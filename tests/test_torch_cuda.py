@@ -10,10 +10,13 @@ import numpy as np
 import pytest
 import torch
 
-from relightable3dgaussians_w_torch import synthetic
+from relightable3dgaussians_w_torch import synthetic, train_step as TS
+from relightable3dgaussians_w_torch.config import Config
 from relightable3dgaussians_w_torch.models import gaussians as G
-from relightable3dgaussians_w_torch.ops import binning, composite, preprocess
+from relightable3dgaussians_w_torch.models.nets import MLPNet
+from relightable3dgaussians_w_torch.ops import binning, composite, preprocess, rasterize, segment_sum
 from relightable3dgaussians_w_torch.ops.cuda import expand as expand_kernel
+from relightable3dgaussians_w_torch.ops.cuda import segment_sum as segment_sum_kernel
 from relightable3dgaussians_w_torch.ops.cuda import tile_composite as composite_kernel
 
 pytestmark = pytest.mark.cuda
@@ -93,3 +96,96 @@ def test_wrappers_reject_bad_inputs(dev):
     with pytest.raises(TypeError):
         expand_kernel.expand_entries(counts, counts, torch.zeros(4, 2, dtype=torch.int32,
                                      device=dev), counts, ts, 2, 16)
+    tiles, tfin = torch.zeros(4, 256, 3, device=dev), torch.zeros(4, 256, device=dev)
+    with pytest.raises(ValueError):   # g_tiles with the wrong channel count
+        composite_kernel.composite_backward(feat, ts, ts, torch.zeros(3, device=dev), tiles,
+                                            tfin, torch.zeros(4, 256, 2, device=dev), tfin, 2, 2)
+    with pytest.raises(ValueError):   # ids of another length
+        segment_sum_kernel.segment_sum_rows(feat, ts, 4)
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("channels", [3, 13])
+def test_composite_backward_kernel_matches_plain(dev, channels):
+    """Kernel C against the plain backward, per gradient group (the JAX
+    package's kernel tolerance), and bitwise equal over two launches."""
+    pre, opa, colors, gx = _frame(dev, channels=channels)
+    b = binning.bin_gaussians(pre, gx, gx, int(pre.tiles_touched.sum()) + 1024)
+    feat = torch.cat([pre.mean2d, pre.conic, opa[:, None], colors], -1)[b.gauss_id.long()]
+    feat = feat.contiguous()
+    bg = torch.linspace(0.1, 0.9, channels, device=dev)
+    rgb, tfin = composite_kernel.composite_forward(feat, b.tile_start, b.tile_end, bg, gx, gx)
+    gen = torch.Generator(device=dev).manual_seed(channels)
+    g_rgb = torch.randn(rgb.shape, generator=gen, device=dev)
+    g_tfin = torch.randn(tfin.shape, generator=gen, device=dev)
+    args = (feat, b.tile_start, b.tile_end, bg, rgb, tfin, g_rgb, g_tfin, gx, gx)
+    before = composite_kernel.backward_launches
+    d_k, dbg_k = composite_kernel.composite_backward(*args)
+    d_k2, _ = composite_kernel.composite_backward(*args)
+    torch.cuda.synchronize()
+    assert composite_kernel.backward_launches == before + 2
+    assert torch.equal(d_k, d_k2)
+    d_p, dbg_p = composite.composite_backward(feat, b.tile_start, b.tile_end, bg, gx, gx,
+                                              g_rgb, g_tfin)
+    assert torch.isfinite(d_k).all()
+    for name, cols in (("mean2d", slice(0, 2)), ("conic", slice(2, 5)),
+                       ("opacity", slice(5, 6)), ("colors", slice(6, None))):
+        assert _rel(d_k[:, cols], d_p[:, cols]) < 5e-3, name
+    assert _rel(dbg_k, dbg_p) < 1e-5
+
+
+def test_segment_sum_kernel_matches_plain(dev):
+    """Kernel D against index_add_ (the order of summation only) and bitwise
+    equal over two launches, on a frame's entry ids."""
+    pre, _, _, gx = _frame(dev)
+    b = binning.bin_gaussians(pre, gx, gx, int(pre.tiles_touched.sum()) + 1024)
+    n = pre.depth.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = torch.randn((b.gauss_id.shape[0], 19), generator=gen, device=dev)
+    ids = segment_sum.entry_ids(b.gauss_id, b.num_entries, n)   # unused slots dropped
+    before = segment_sum_kernel.launches
+    got = segment_sum_kernel.segment_sum_rows(rows, ids, n)
+    got2 = segment_sum_kernel.segment_sum_rows(rows, ids, n)
+    torch.cuda.synchronize()
+    assert segment_sum_kernel.launches == before + 2
+    assert torch.equal(got, got2)
+    want = segment_sum.segment_sum_rows_plain(rows, ids, n)
+    assert _rel(got, want) < 1e-5
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """One training step on the card (every kernel launched) against the same
+    step on the CPU: loss, per-leaf gradients and densification statistics."""
+    p, s = synthetic.synthetic_scene(n=2000, n_sky=200, seed=3)
+    cfg = Config()
+    gen = torch.Generator().manual_seed(0)
+    mlp = MLPNet(generator=gen)
+    state = TS.init_train_state(p, s, mlp, torch.randn(2, 32, generator=gen))
+    cam = synthetic.camera(64, 64)
+    draws = TS.make_draws(gen, mlp, cfg)
+    gt = torch.rand((64, 64, 3), generator=gen)
+    ones = torch.ones(64, 64)
+    rcfg = rasterize.RasterizerConfig(width=64, height=64, max_dup=1 << 15)
+    args = (cam, gt, ones, ones, 0, draws, torch.zeros(3), mlp, cfg, rcfg)
+    to = lambda tree: TS.tree_map(lambda x: x.to(dev), tree)
+    card_args = (to(cam), gt.to(dev), ones.to(dev), ones.to(dev), 0, to(draws),
+                 torch.zeros(3, device=dev), mlp, cfg, rcfg)
+    for k in (expand_kernel, composite_kernel, segment_sum_kernel):
+        k.launches = 0
+    composite_kernel.backward_launches = 0
+    on_card = TS.loss_and_grads(to(state), *card_args, device=dev)
+    torch.cuda.synchronize()
+    assert min(expand_kernel.launches, composite_kernel.launches,
+               composite_kernel.backward_launches, segment_sum_kernel.launches) >= 1
+    on_cpu = TS.loss_and_grads(state, *args, device="cpu")
+    assert abs(float(on_card[0]) - float(on_cpu[0])) <= 1e-4 * abs(float(on_cpu[0]))
+    for got, want in zip(TS.tree_leaves(on_card[2]) + [on_card[3]],
+                         TS.tree_leaves(on_cpu[2]) + [on_cpu[3]]):
+        if want.abs().max() > 0:
+            assert _rel(got.cpu(), want) < 5e-3
+    new, aux = TS.train_step(state, *args, device=dev)
+    assert int(aux.overflow) == 0 and torch.isfinite(aux.loss)
+    assert float(new.gauss_state.xyz_grad_accum.max()) > 0
