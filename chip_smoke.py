@@ -1,4 +1,4 @@
-"""Smoke run of the torch port's serving path and training step on one CUDA card.
+"""Smoke run of the torch port's serving path, training step and trainer on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -40,7 +40,28 @@ Gaussians, random MLP weights from a seed), then:
             2-6), the peak device memory, and from a profiled window of 3 more
             steps the stage breakdown (the port's own profiler ranges) and the
             device idle share; then, from the starting state, 6 steps that all
-            reuse one set of draws, whose loss must fall.
+            reuse one set of draws, whose loss must fall;
+8. intervals: row-interval binning at yaw 0 on the scene as is and with
+            scales[:, 0] *= 8: rect and interval entry counts, the interval
+            expansion kernel (A-int) against its plain version (bitwise) with
+            times and bound, and a render plus one backward with intervals on
+            and off (within 2e-6 on the image and 5e-4 of the largest
+            gradient, the JAX package's gates);
+9. trainer: a COLMAP dataset of 8 views of the scene (yaw -10..10 degrees on
+            an orbit, the port's renders, the 1,000,000 foreground points as
+            the point cloud), trained through `cli.train.main` with the
+            defaults plus runtime.row_intervals=true for 60 iterations (densify
+            rounds of both variants, opacity resets, evaluation and save at
+            the end): every step's loss finite, every binning overflow healed
+            with only its own step rejected, launches of A-int, B, C and D, a
+            densify round that selects, the checkpoint in the reference
+            layout; then on the trained state (pool headroom 8) and view 0,
+            kernels A-int (bitwise), B, C and D against their plain versions
+            on the inputs the trainer's step gives them, the full-state and
+            PLY reloads rendering view 0 as the trained state does, and steps
+            with row intervals on and off (times and profiled stages); init,
+            per-iteration (CUDA events between the loop's steps, no pull of
+            its own) and event times.
 
 Each phase prints one JSON line, with the card's nvidia-smi name and power
 limit under "card". The last lines are the kernel table, the
@@ -52,18 +73,22 @@ no CUDA device is present.
 from __future__ import annotations
 
 import json
+import shutil
 import socket
 import struct
 import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from relightable3dgaussians_w_torch import synthetic, train_step as TS, viewer
+from relightable3dgaussians_w_torch.cli import train as cli_train
 from relightable3dgaussians_w_torch.config import Config
+from relightable3dgaussians_w_torch.data.ply import write_ply
 from relightable3dgaussians_w_torch.models import gaussians as G
 from relightable3dgaussians_w_torch.models.nets import MLPNet
 from relightable3dgaussians_w_torch.ops import binning, composite, preprocess, rasterize, segment_sum
@@ -72,12 +97,24 @@ from relightable3dgaussians_w_torch.ops.cuda import expand as expand_kernel
 from relightable3dgaussians_w_torch.ops.cuda import segment_sum as segment_sum_kernel
 from relightable3dgaussians_w_torch.ops.cuda import tile_composite as composite_kernel
 from relightable3dgaussians_w_torch.renderer import compute_colors, render, render_rgb
+from relightable3dgaussians_w_torch.trainer import size_entry_budget
 
 N_GAUSS = 1_000_000
 N_SKY = 10_000
 RES = 800
 FRAMES = 8
 TRAIN_STEPS = 6
+ANISO = 8.0                    # bench.py's BENCH_ANISO regime: scales[:, 0] *= 8
+TRAINER_VIEWS = 8
+TRAINER_ITERS = 60
+ORBIT_CENTER = np.array([0.0, 0.0, 4.5])   # middle of the scene's depth range
+# The trainer phase's schedule (iterations 1-60): opacity resets at 10 (the
+# densify start) and 30, plain densify rounds at 20 and 30, sized ones at 40
+# and 50; evaluation and save at 60. The densify gradient threshold stays at
+# its default (1e-4), which selects Gaussians to split at iteration 20.
+TRAINER_SCHEDULE = ["optimizer.densify_from_iter=10", "optimizer.densification_interval=10",
+                    "optimizer.opacity_reset_interval=30", "optimizer.densify_until_iter=55"]
+WORK_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM data sheet, float32 outside tensor cores
 EXPAND_OPS_PER_SLOT = 4        # integer ops per written slot
@@ -221,6 +258,35 @@ def pair_counts(feat, tile_start, tile_end, grid_x):
     return out
 
 
+def expand_args(pre, counts, gx, max_dup):
+    """The expansion wrappers' arguments for one frame's PreprocessOut and
+    per-Gaussian entry counts (rect or interval)."""
+    n = pre.depth.shape[0]
+    counts = counts.to(torch.int32).contiguous()
+    offsets = torch.cumsum(counts, 0, dtype=torch.int64) - counts
+    rank = torch.empty(n, dtype=torch.int64, device=counts.device)
+    rank[torch.argsort(pre.depth, stable=True)] = torch.arange(n, device=counts.device)
+    rect_w = torch.clamp_min(pre.rect_max[:, 0] - pre.rect_min[:, 0], 1).int().contiguous()
+    return counts, offsets, pre.rect_min.contiguous(), rect_w, rank, gx, max_dup
+
+
+def expand_bytes(counts, max_dup, packed=None):
+    """Bytes the expansion must move on these inputs: every Gaussian's count
+    and offset read; a Gaussian with entries also reads its rect min, width
+    and rank and, with row intervals, its packed rows up to the last nonempty
+    one (all of them when the rect runs past them); every slot of the budget
+    gets a key and an id."""
+    live = counts > 0
+    read = counts.shape[0] * (4 + 8) + int(live.sum()) * (8 + 4 + 8) + max_dup * (8 + 4)
+    if packed is not None:
+        w = packed.long() >> 7
+        row = torch.arange(1, w.shape[0] + 1, device=w.device)[:, None]
+        last = ((w > 0) * row).amax(0)
+        rows = torch.where(counts.long() > w.sum(0), w.shape[0], last)
+        read += int(rows[live].sum()) * 4
+    return read
+
+
 def kernels_phase(host, dev):
     rcfg = host.rcfg
     gx, gy = rcfg.grid_x, rcfg.grid_y
@@ -229,13 +295,8 @@ def kernels_phase(host, dev):
                                 cam.tan_fovy, RES, RES, 16, active=host.state.gauss_state.alive,
                                 opacities=opa, skip_alpha=rcfg.skip_alpha)
     n = xyz.shape[0]
-    counts = pre.tiles_touched.contiguous()
-    offsets = torch.cumsum(counts, 0) - counts
-    rank = torch.empty(n, dtype=torch.int64, device=dev)
-    rank[torch.argsort(pre.depth, stable=True)] = torch.arange(n, device=dev)
-    rect_min = pre.rect_min.contiguous()
-    rect_w = torch.clamp_min(pre.rect_max[:, 0] - pre.rect_min[:, 0], 1).int().contiguous()
-    args = (counts, offsets, rect_min, rect_w, rank, gx, rcfg.max_dup)
+    args = expand_args(pre, pre.tiles_touched, gx, rcfg.max_dup)
+    counts = args[0]
 
     keys_k, gid_k = expand_kernel.expand_entries(*args)
     keys_p, gid_p = binning.expand_entries_plain(*args)
@@ -246,8 +307,8 @@ def kernels_phase(host, dev):
     total = int(counts.sum())
     a_ms = median_ms(lambda: expand_kernel.expand_entries(*args), 20)
     a_plain_ms = median_ms(lambda: binning.expand_entries_plain(*args), 10)
-    a_bytes = n * (4 + 8 + 8 + 4 + 8) + rcfg.max_dup * (8 + 4)
-    a_ops = EXPAND_OPS_PER_SLOT * min(total, rcfg.max_dup)
+    a_bound = bound(expand_bytes(counts, rcfg.max_dup),
+                    EXPAND_OPS_PER_SLOT * min(total, rcfg.max_dup))
 
     b = binning.bin_gaussians(pre, gx, gy, rcfg.max_dup)
     if int(b.overflow) != 0:
@@ -270,8 +331,8 @@ def kernels_phase(host, dev):
         feat, b.tile_start, b.tile_end, bg, gx, gy), 10)
     pairs = pair_counts(feat, b.tile_start, b.tile_end, gx)
     T, P = gx * gy, 256
-    b_bytes = total * feat.shape[1] * 4 + T * 2 * 8 + 3 * 4 + T * P * 4 * 4
-    b_ops = compositor_ops(composite_ops_per_pair(3), pairs)
+    b_bound = bound(total * feat.shape[1] * 4 + T * 2 * 8 + 3 * 4 + T * P * 4 * 4,
+                    compositor_ops(composite_ops_per_pair(3), pairs))
 
     record = {"phase": "kernels", "frame": "yaw -10, embedding 0, 800x800",
           "gaussians": n, "entries": total, "max_dup": rcfg.max_dup,
@@ -285,17 +346,13 @@ def kernels_phase(host, dev):
         dict(name="expand_entries", route="cuda",
              source="relightable3dgaussians_w_torch/csrc/expand.cu",
              replaces="relightable3dgaussians_w_tpu/ops/pallas/expand.py:58",
-             max_abs_err=float(a_err), ms=a_ms, plain_ms=a_plain_ms,
-             bound_ms=max(a_bytes / HBM_BYTES_PER_S, a_ops / FP32_OPS_PER_S) * 1e3,
-             bound_by="bytes" if a_bytes / HBM_BYTES_PER_S >= a_ops / FP32_OPS_PER_S
-             else "operations", library_ms=None),
+             max_abs_err=float(a_err), ms=a_ms, plain_ms=a_plain_ms, bound_ms=a_bound[0],
+             bound_by=a_bound[1], library_ms=None),
         dict(name="composite_forward", route="cuda",
              source="relightable3dgaussians_w_torch/csrc/tile_composite.cu",
              replaces="relightable3dgaussians_w_tpu/ops/pallas/tile_composite.py:193",
-             max_abs_err=img_err[0], ms=b_ms, plain_ms=b_plain_ms,
-             bound_ms=max(b_bytes / HBM_BYTES_PER_S, b_ops / FP32_OPS_PER_S) * 1e3,
-             bound_by="bytes" if b_bytes / HBM_BYTES_PER_S >= b_ops / FP32_OPS_PER_S
-             else "operations", library_ms=None),
+             max_abs_err=img_err[0], ms=b_ms, plain_ms=b_plain_ms, bound_ms=b_bound[0],
+             bound_by=b_bound[1], library_ms=None),
     ]
     return table, img_k, record
 
@@ -502,18 +559,27 @@ def autograd_node(root, name):
     raise LookupError(f"no {name} node in the autograd graph")
 
 
-def first_step_inputs(ts, dev):
-    """The compositor's and the gather's inputs on the first training step,
-    read from the autograd graph of the port's own `forward_loss`: the
-    compositor's saved inputs and outputs, the cotangents that reach it and the
-    gather, and the gather's ids."""
-    draws = TS.make_draws(torch.Generator(device=dev).manual_seed(0), ts.mlp, ts.cfg)
-    params = TS.tree_map(lambda p: p.detach().requires_grad_(True), ts.state.params)
-    n = ts.state.gauss_state.alive.shape[0]
+def step_inputs(state, cam, gt, sky, occ, uid, mlp, cfg, rcfg, bg, dev):
+    """The kernels' inputs on one training step of `state`, read from the port's
+    own `forward_loss`: the expansion's arguments as the binning passes them,
+    and from the autograd graph the compositor's saved inputs and outputs, the
+    cotangents that reach it and the gather, and the gather's ids."""
+    draws = TS.make_draws(torch.Generator(device=dev).manual_seed(0), mlp, cfg)
+    params = TS.tree_map(lambda p: p.detach().requires_grad_(True), state.params)
+    n = state.gauss_state.alive.shape[0]
     probe = torch.zeros((n, 2), device=dev, requires_grad=True)
-    loss, aux = TS.forward_loss(params, ts.state.gauss_state, probe, ts.mlp, ts.cam, ts.gt,
-                                ts.ones, ts.ones, 0, draws, ts.state.step, ts.cfg, ts.rcfg,
-                                ts.bg, device=dev)
+    expand_calls, launch = [], expand_kernel.expand_entries
+
+    def recorded(*args, **kwargs):
+        expand_calls.append((args, kwargs))
+        return launch(*args, **kwargs)
+
+    expand_kernel.expand_entries = recorded
+    try:
+        loss, aux = TS.forward_loss(params, state.gauss_state, probe, mlp, cam, gt, sky, occ, uid,
+                                    draws, state.step, cfg, rcfg, bg, device=dev)
+    finally:
+        expand_kernel.expand_entries = launch
     if int(aux["overflow"]) != 0:
         raise AssertionError(f"entry budget overflow {int(aux['overflow'])} on the training frame")
     comp = autograd_node(loss.grad_fn, "_CompositeTilesBackward")
@@ -525,20 +591,21 @@ def first_step_inputs(ts, dev):
     gather.register_prehook(lambda g: got.update(d_rows=g[0]))
     torch.autograd.grad(loss, TS.tree_leaves(params) + [probe], allow_unused=True)
     zero_if_none = lambda g, like: torch.zeros_like(like) if g is None else g.contiguous()
-    return dict(feat=feat, tile_start=tile_start, tile_end=tile_end, bg=bg, rgb=rgb, tfin=tfin,
+    return dict(expand=expand_calls[0], feat=feat, tile_start=tile_start, tile_end=tile_end,
+                bg=bg, rgb=rgb, tfin=tfin,
                 g_rgb=zero_if_none(got["g_rgb"], rgb),     # the loss reads no T_final
                 g_tfin=zero_if_none(got["g_tfin"], tfin),
                 d_rows=zero_if_none(got["d_rows"], feat), n=n, entries=int(num_valid),
                 ids=segment_sum.entry_ids(gid, num_valid, n))
 
 
-def train_kernels_phase(ts, dev):
-    """Kernels B (C = 13), C and D on the first training step's inputs."""
-    x = first_step_inputs(ts, dev)
+def hold_step_kernels(x, rcfg, dev):
+    """Kernels B (C = 13), C and D on one training step's inputs (`step_inputs`)
+    against their plain versions, with times and bounds: (table rows, record)."""
     feat, ts_, te_, bg, rgb, tfin = (x[k] for k in ("feat", "tile_start", "tile_end", "bg",
                                                     "rgb", "tfin"))
     g_rgb, g_tfin, d_rows, gid, n = (x[k] for k in ("g_rgb", "g_tfin", "d_rows", "ids", "n"))
-    rcfg, gx, gy = ts.rcfg, ts.rcfg.grid_x, ts.rcfg.grid_y
+    gx, gy = rcfg.grid_x, rcfg.grid_y
     C = feat.shape[1] - 6
     T, P = gx * gy, 256
     entries = x["entries"]
@@ -602,8 +669,7 @@ def train_kernels_phase(ts, dev):
     # rows once; the budget's unused slots are dropped unread.
     d_bound = bound(entries * (F * 4 + 4) + n * F * 4, entries * F)
 
-    record = {"phase": "train_kernels", "frame": "yaw 0, 800x800, 13 channels, step 0",
-              "entries": entries, "slots": D, "pairs": pairs,
+    record = {"gaussians": n, "entries": entries, "slots": D, "pairs": pairs,
               "composite_forward_c13": {"image_max_abs_err": b_err[0],
                                         "image_frac_over_1e-3": b_err[1],
                                         "image_median_err": b_err[2], "ms": b_ms,
@@ -631,10 +697,53 @@ def train_kernels_phase(ts, dev):
     return table, record
 
 
+def hold_interval_expansion(call, label):
+    """Kernel A-int on the arguments the binning passed it (`step_inputs`'s
+    "expand", or built from a frame) against its plain version, bitwise, with
+    times and its byte bound: the kernels line's row and a record."""
+    args, kwargs = call
+    packed = kwargs.get("packed")
+    if packed is None:
+        raise AssertionError(f"{label}: the binning walked rects, not row intervals")
+    counts, max_dup = args[0], args[-1]
+    keys_k, gid_k = expand_kernel.expand_entries(*args, packed=packed)
+    keys_p, gid_p = binning.expand_entries_plain(*args, packed=packed)
+    torch.cuda.synchronize()
+    if not (torch.equal(keys_k, keys_p) and torch.equal(gid_k, gid_p)):
+        raise AssertionError(f"{label}: expand_entries (intervals) differs from its plain version")
+    k_ms = median_ms(lambda: expand_kernel.expand_entries(*args, packed=packed), 20)
+    p_ms = median_ms(lambda: binning.expand_entries_plain(*args, packed=packed), 5)
+    n, entries = counts.shape[0], int(counts.sum())
+    k_bound = bound(expand_bytes(counts, max_dup, packed),
+                    EXPAND_OPS_PER_SLOT * min(entries, max_dup))
+    row = dict(name="expand_entries_intervals", route="cuda",
+               source="relightable3dgaussians_w_torch/csrc/expand.cu",
+               replaces="relightable3dgaussians_w_tpu/ops/pallas/expand.py:58",
+               max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=k_bound[0],
+               bound_by=k_bound[1], library_ms=None)
+    return row, {"rows": n, "entries": entries, "max_dup": max_dup,
+                 "a_int_bitwise_equal": True, "a_int_ms": k_ms, "a_int_plain_ms": p_ms,
+                 "a_int_bound_ms": k_bound[0]}
+
+
+def train_kernels_phase(ts, dev):
+    """Kernels B (C = 13), C and D on the first training step's inputs."""
+    x = step_inputs(ts.state, ts.cam, ts.gt, ts.ones, ts.ones, 0, ts.mlp, ts.cfg, ts.rcfg,
+                    ts.bg, dev)
+    table, record = hold_step_kernels(x, ts.rcfg, dev)
+    return table, {"phase": "train_kernels", "frame": "yaw 0, 800x800, 13 channels, step 0",
+                   **record}
+
+
 KERNELS = {"expand_entries": (expand_kernel, "launches"),
+           "expand_entries_intervals": (expand_kernel, "interval_launches"),
            "composite_forward": (composite_kernel, "launches"),
            "composite_backward": (composite_kernel, "backward_launches"),
            "segment_sum_rows": (segment_sum_kernel, "launches")}
+
+
+TRAIN_PATH = ("expand_entries", "composite_forward", "composite_backward", "segment_sum_rows")
+TRAINER_PATH = ("expand_entries_intervals",) + TRAIN_PATH[1:]
 
 
 def read_launches():
@@ -699,6 +808,43 @@ def stage_table(prof, reps):
     return table
 
 
+def profile_steps(step, state, reps):
+    """`reps` calls state = step(state), back to back under torch.profiler:
+    the stage table of the port's ranges per step, the host wall and the
+    device busy ms per step, the idle share and the largest device kernels."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            state = step(state)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    dev_events = device_events(prof)
+    busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3 / reps
+    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:10]
+    return {"profiled_stages_per_step": stage_table(prof, reps),
+            "profiled_step_wall_ms": wall_ms, "profiled_device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "kernels_per_step": sum(e.count for e in dev_events) / reps,
+            "top_device_ms_per_step": {e.key[:60]: e.self_device_time_total / 1e3 / reps
+                                       for e in top}}
+
+
+def step_times(step, state, n):
+    """ms of each of `n` calls state = step(state) on the card's stream, from a
+    CUDA event recorded before each call to the next one (the last closed by
+    an event after it), with no sync between the calls."""
+    marks = []
+    for _ in range(n + 1):
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        if len(marks) <= n:
+            state = step(state)
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in zip(marks, marks[1:])], state
+
+
 def train_phase(ts, dev):
     """TRAIN_STEPS steps through train_step (the training path), a profiled
     window of 3 more, then the descent check on fixed draws."""
@@ -717,7 +863,7 @@ def train_phase(ts, dev):
         times.append(s_ev.elapsed_time(e_ev))
         losses.append(float(aux.loss))
         after = read_launches()
-        missing = [k for k in after if after[k] - before[k] < 1]
+        missing = [k for k in TRAIN_PATH if after[k] - before[k] < 1]
         if missing:
             raise AssertionError(f"train step {i}: no launch of {missing}")
         if not np.isfinite(losses[-1]):
@@ -732,20 +878,9 @@ def train_phase(ts, dev):
     peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
 
     # Stage breakdown and device busy share of whole steps, back to back.
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    reps = 3
-    draws = [TS.make_draws(ts.gen, ts.mlp, ts.cfg) for _ in range(reps)]
-    with torch.profiler.profile(activities=acts) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for d in draws:
-            state, _ = TS.train_step(state, *ts.args(d), device=dev)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    dev_events = device_events(prof)
-    busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3 / reps
-    stages = stage_table(prof, reps)
-    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:10]
+    draws = iter([TS.make_draws(ts.gen, ts.mlp, ts.cfg) for _ in range(3)])
+    prof = profile_steps(lambda st: TS.train_step(st, *ts.args(next(draws)), device=dev)[0],
+                         state, 3)
 
     # Descent at full width: from the starting state, TRAIN_STEPS steps that
     # all reuse one set of draws, so the loss differs between steps only by
@@ -763,19 +898,307 @@ def train_phase(ts, dev):
               "target": "port render under embedding 1; sky and occluder masks all ones",
               "losses": losses, "step_ms": times,
               "ms_per_step_median_2_to_6": float(np.median(times[1:])),
-              "launches": launches, "peak_memory_mb": peak_mb,
-              "profiled_stages_per_step": stages,
-              "profiled_step_wall_ms": wall_ms, "profiled_device_busy_ms": busy_ms,
-              "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms > 0 else None,
+              "launches": launches, "peak_memory_mb": peak_mb, **prof,
               # The profiler slows the host's dispatch; against the unprofiled
               # step time (CUDA events) the same device work leaves less idle.
               "device_idle_share_of_unprofiled_step":
-                  1.0 - busy_ms / float(np.median(times[1:])) if busy_ms > 0 else None,
-              "kernels_per_step": sum(e.count for e in dev_events) / reps,
-              "top_device_ms_per_step": {e.key[:60]: e.self_device_time_total / 1e3 / reps
-                                         for e in top},
+                  1.0 - prof["profiled_device_busy_ms"] / float(np.median(times[1:])),
               "fixed_draw_losses": fixed_losses}
     return launches, record
+
+
+def intervals_phase(host, dev):
+    """Row intervals at full width, yaw 0: the scene as is and with
+    scales[:, 0] *= ANISO. Per scene the rect and interval entry counts,
+    kernel A-int against its plain version (bitwise) with times and bound (the
+    kernels line takes A-int at the trainer's shapes, `trainer_phase`), and
+    a render plus one backward with intervals on and off (the JAX test's
+    gates: 2e-6 absolute on the image, 5e-4 of the largest gradient)."""
+    gx = host.rcfg.grid_x
+    out = {}
+    for label, stretch in (("isotropic", 1.0), (f"aniso_{ANISO:g}", ANISO)):
+        cam, xyz, scl, quat, opa, rgb = frame_inputs(host, 0.0, dev)
+        scl = scl * torch.tensor([stretch, 1.0, 1.0], device=dev)
+        with torch.no_grad():
+            pre = preprocess.preprocess(xyz, scl, quat, cam.viewmat, cam.projmat, cam.tan_fovx,
+                                        cam.tan_fovy, RES, RES, 16,
+                                        active=host.state.gauss_state.alive, opacities=opa)
+            counts, packed = preprocess.row_intervals(pre, opa)
+        rect_n, iv_n = int(pre.tiles_touched.sum()), int(counts.sum())
+        max_dup = ((int(rect_n * 1.05) + 4095) // 4096) * 4096
+        call = (expand_args(pre, counts, gx, max_dup),
+                {"packed": packed.to(torch.int32).contiguous()})
+        _, a_int = hold_interval_expansion(call, label)
+
+        # Render + one backward with row intervals on and off.
+        wimg = torch.randn((RES, RES, 3), generator=torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+        res = {}
+        for flag in (False, True):
+            rcfg = host.rcfg._replace(max_dup=max_dup, row_intervals=flag)
+            leaves = [t.detach().clone().requires_grad_(True) for t in (xyz, scl, quat, opa, rgb)]
+            img, aux = rasterize.rasterize(*leaves, host.bg_color, cam, rcfg,
+                                           active=host.state.gauss_state.alive, device=dev)
+            if int(aux.overflow) != 0:
+                raise AssertionError(f"{label}: entry overflow {int(aux.overflow)}")
+            (torch.sum(img * wimg) + torch.sum(aux.alpha)).backward()
+            res[flag] = (img.detach(), aux.alpha.detach(), [t.grad for t in leaves],
+                         int(aux.num_entries))
+        img_d = float((res[True][0] - res[False][0]).abs().max())
+        alpha_d = float((res[True][1] - res[False][1]).abs().max())
+        grad_rel = {}
+        for name, g0, g1 in zip(("means3d", "scales", "quats", "opacities", "colors"),
+                                res[False][2], res[True][2]):
+            grad_rel[name] = float((g1 - g0).abs().max() / g0.abs().max().clamp_min(1e-30))
+        if not (img_d <= 2e-6 and alpha_d <= 2e-6 and max(grad_rel.values()) <= 5e-4):
+            raise AssertionError(f"{label}: intervals change the render: image {img_d:.3e}, "
+                                 f"alpha {alpha_d:.3e}, gradients {grad_rel}")
+        if res[True][3] != iv_n or res[False][3] != rect_n:
+            raise AssertionError(f"{label}: rasterizer entry counts differ from preprocess's")
+        out[label] = {
+            "rect_entries": rect_n, "interval_entries": iv_n, "cut": 1.0 - iv_n / rect_n,
+            "max_dup": max_dup, **{k: a_int[k] for k in ("a_int_bitwise_equal", "a_int_ms",
+                                                         "a_int_plain_ms", "a_int_bound_ms")},
+            "image_max_abs_delta": img_d, "alpha_max_abs_delta": alpha_d,
+            "grad_max_rel_delta": grad_rel,
+            "image_bitwise_equal": bool(torch.equal(res[True][0], res[False][0])),
+            "grads_bitwise_equal": all(torch.equal(a, b) for a, b in
+                                       zip(res[False][2], res[True][2]))}
+    return {"phase": "intervals", "frame": "yaw 0, 800x800", "gaussians": N_GAUSS + N_SKY, **out}
+
+
+def orbit_view(deg):
+    """World -> view of a camera yawed by `deg` around ORBIT_CENTER, at the
+    origin for 0 degrees (the other phases' camera)."""
+    rot = yaw(deg)[:3, :3]
+    center = ORBIT_CENTER - ORBIT_CENTER[2] * rot[2]   # rot[2]: the viewing direction
+    view = np.eye(4, dtype=np.float32)
+    view[:3, :3] = rot
+    view[:3, 3] = -rot @ center
+    return view
+
+
+def write_dataset(host, root: Path, dev):
+    """A COLMAP-layout scene (sparse/0 text model + points3D.ply + images/) of
+    TRAINER_VIEWS 800x800 views on the orbit, yaw -10..10 degrees, each the
+    port's render of the scene under embedding 0; the point cloud is the
+    scene's foreground points."""
+    from PIL import Image
+
+    (root / "sparse" / "0").mkdir(parents=True)
+    (root / "images").mkdir()
+    m = host.cfg.model
+    focal = RES / (2.0 * float(np.tan(np.deg2rad(60.0) / 2)))
+    lines = []
+    with torch.inference_mode():
+        envl, sky = host.mlp(host.state.embeddings[0][None])
+        xyz, scl, quat = (G.get_xyz(host.state.gaussians, host.state.gauss_state),
+                          G.get_scaling(host.state.gaussians),
+                          G.get_rotation(host.state.gaussians))
+        opa = G.get_opacity(host.state.gaussians, host.state.gauss_state)[:, 0]
+        for i in range(TRAINER_VIEWS):
+            deg = -10.0 + 20.0 * i / (TRAINER_VIEWS - 1)
+            view = orbit_view(deg)
+            cam = synthetic.camera(RES, RES, viewmat=view, device=dev)
+            pre = preprocess.preprocess(xyz, scl, quat, cam.viewmat, cam.projmat, cam.tan_fovx,
+                                        cam.tan_fovy, RES, RES, 16,
+                                        active=host.state.gauss_state.alive, opacities=opa)
+            demand = int(pre.tiles_touched.sum())
+            rcfg = host.rcfg._replace(max_dup=((int(demand * 1.05) + 4095) // 4096) * 4096)
+            img, aux = render_rgb(host.state.gaussians, host.state.gauss_state, envl[0], sky,
+                                  cam, rcfg, host.bg_color, m.envlight_sh_degree,
+                                  m.sky_sh_degree, m.specular, m.fix_sky, device=dev)
+            if int(aux.overflow) != 0:
+                raise AssertionError(f"dataset view {i}: entry overflow")
+            u8 = (torch.clamp(img, 0.0, 1.0) * 255.0).to(torch.uint8).cpu().numpy()
+            name = f"view_{i:02d}.png"
+            Image.fromarray(u8).save(root / "images" / name)
+            a = np.deg2rad(deg)   # the view rotation is a yaw: q = (cos a/2, 0, sin a/2, 0)
+            t = view[:3, 3]
+            lines += [f"{i + 1} {np.cos(a / 2):.17g} 0 {np.sin(a / 2):.17g} 0 "
+                      f"{t[0]:.17g} {t[1]:.17g} {t[2]:.17g} 1 {name}", ""]
+    (root / "sparse" / "0" / "images.txt").write_text("\n".join(lines) + "\n")
+    (root / "sparse" / "0" / "cameras.txt").write_text(
+        f"1 PINHOLE {RES} {RES} {focal:.17g} {focal:.17g} {RES / 2} {RES / 2}\n")
+    pts = host.state.gaussians.xyz[:N_GAUSS].cpu().numpy()
+    zeros, gray = np.zeros(N_GAUSS, np.float32), np.full(N_GAUSS, 128.0, np.float32)
+    write_ply(str(root / "sparse" / "0" / "points3D.ply"),
+              {"x": pts[:, 0], "y": pts[:, 1], "z": pts[:, 2], "nx": zeros, "ny": zeros,
+               "nz": zeros, "red": gray, "green": gray, "blue": gray})
+
+
+class StepRecorder:
+    """Stands in for `train_step.train_step` while the trainer runs: a CUDA
+    event before each step, and the step's loss and overflow kept on the
+    device and read after the run, so the loop runs as a user's does (the
+    default log cadence, no pull of its own)."""
+
+    def __init__(self):
+        self.inner, self.marks, self.out = TS.train_step, [], []
+
+    def __call__(self, *args, **kwargs):
+        self.marks.append(torch.cuda.Event(enable_timing=True))
+        self.marks[-1].record()
+        state, aux = self.inner(*args, **kwargs)
+        self.out.append((aux.loss, aux.overflow))
+        return state, aux
+
+
+def trainer_phase(host, dev):
+    """The trainer through `cli.train.main` on a COLMAP dataset of the scene:
+    default settings (pool headroom 8, demand-sized budget, the probe, the loss
+    logged every 100 iterations) plus runtime.row_intervals=true and
+    TRAINER_SCHEDULE. Then, on the trained state and view 0: kernels A-int, B
+    (C = 13), C and D against their plain versions at the shapes the trainer
+    gives them, the two reloads, and steps with row intervals on and off."""
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_dataset(host, WORK_DIR / "scene", dev)
+    dataset_s = time.perf_counter() - t0
+    out = WORK_DIR / "out"
+    argv = [f"dataset.source_path={WORK_DIR / 'scene'}", f"dataset.model_path={out}",
+            f"optimizer.iterations={TRAINER_ITERS}", "runtime.max_dup=0",
+            "runtime.row_intervals=true", *TRAINER_SCHEDULE, f"--device={dev.type}"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    recorder = TS.train_step = StepRecorder()
+    t0 = time.perf_counter()
+    try:
+        tr = cli_train.main(argv)
+    finally:
+        TS.train_step = recorder.inner
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
+
+    recs = [json.loads(line) for line in open(tr.log_path)]
+    logged = [r for r in recs if "loss" in r]
+    events = [r for r in recs if "event" in r]
+    losses = [float(loss) for loss, _ in recorder.out]
+    overflow = [int(n) for _, n in recorder.out]
+    if (len(losses) != TRAINER_ITERS or not logged
+            or not np.isfinite(losses + [r["loss"] for r in logged]).all()):
+        raise AssertionError(f"trainer: {len(losses)} steps, losses {losses}, logged {logged}")
+    overflowed = [it for it, n in enumerate(overflow, 1) if n > 0]
+    healed = [r["iter"] for r in events if r["event"] == "heal_binning_overflow"]
+    if healed != overflowed or any(it + 1 in overflowed for it in overflowed):
+        raise AssertionError(f"trainer: overflow at {overflowed}, healed at {healed}")
+    missing = [k for k in TRAINER_PATH if launches[k] < 1]
+    if missing:
+        raise AssertionError(f"trainer: no launch of {missing}")
+    dens = [r for r in events if r["event"] == "densify"]
+    if {r["variant"] for r in dens} != {"plain", "sized"}:
+        raise AssertionError(f"trainer: densify rounds {dens}")
+    if sum(r["n_cloned"] + r["n_split"] for r in dens) == 0:
+        raise AssertionError(f"trainer: densify selected nothing: {dens}")
+    if not any(r["event"] == "opacity_reset" for r in events):
+        raise AssertionError("trainer: no opacity reset")
+    if not params_finite(tr.state):
+        raise AssertionError("trainer: non-finite parameters after the run")
+    it = TRAINER_ITERS
+    for rel in (f"point_cloud/iteration_{it}/point_cloud.ply",
+                f"checkpoint_embeddings/iteration_{it}/embeddings_weights.npz",
+                f"checkpoint_MLP/iteration_{it}/MLP_weights.npz",
+                f"envlights_sh/iteration_{it}/envlight_sh_view_00.npy",
+                f"full_state/iteration_{it}/state.npz", "cameras.json", "cfg_args"):
+        if not (out / rel).exists():
+            raise AssertionError(f"trainer: checkpoint file {rel} missing")
+
+    # Iteration i's time: from the event before its step to the event before
+    # the next one. Quiet iterations have no host sync (a schedule event or a
+    # logged loss) in them or just before them.
+    iter_ms = [a.elapsed_time(b) for a, b in zip(recorder.marks, recorder.marks[1:])]
+    syncs = {r["iter"] for r in events + logged}
+    quiet = [ms for i, ms in enumerate(iter_ms, 1)
+             if i > 1 and i not in syncs and i - 1 not in syncs]
+
+    # The kernels on the trained state and view 0, at the shapes the trainer's
+    # step gives them: A-int on the arguments the binning passed it.
+    view = tr.train_views[0]
+    vargs = (view["mats"], view["image_t"], view["sky_t"], view["occ_t"], view["cam"].uid)
+    x = step_inputs(tr.state, *vargs, tr.mlp, tr.cfg, tr.rcfg, tr.bg_color, dev)
+    a_int_row, a_int = hold_interval_expansion(x["expand"], "trainer")
+    step_rows, step_rec = hold_step_kernels(x, tr.rcfg, dev)
+    del x
+
+    # Reload: the full-state bundle and the PLY warm start must render view 0
+    # as the in-memory state does.
+    emb = lambda: tr.state.params["embeddings"][0][None]
+    with torch.no_grad():
+        ref = tr._render_view(view, emb()).render
+        st = tr.state
+        t0 = time.perf_counter()
+        tr.load_full_state(it)
+        torch.cuda.synchronize()
+        load_full_s = time.perf_counter() - t0
+        img_full = tr._render_view(view, emb()).render
+        full_dir = out / "full_state"
+        full_dir.rename(out / "full_state_kept")
+        try:
+            t0 = time.perf_counter()
+            tr.load_checkpoint(it)
+            torch.cuda.synchronize()
+            load_ply_s = time.perf_counter() - t0
+        finally:
+            (out / "full_state_kept").rename(full_dir)
+        img_ply = tr._render_view(view, emb()).render
+    if not torch.equal(img_full, ref):
+        raise AssertionError("trainer: the full-state reload renders differently")
+    ply_err = check_image(img_ply, ref, "trainer: the PLY reload's render")
+    tr.state = st
+
+    # Steps of the trained state on view 0 through the train_step the loop
+    # calls, with row intervals on (as trained) and off (the rects, the budget
+    # sized from the probe's rect demand): 6 timed with CUDA events and no
+    # sync between them, then 3 profiled (the port's profiler ranges).
+    rect_demand, iv_demand = tr.init_report["rect_demand"], tr.init_report["interval_demand"]
+    modes = {}
+    for mode, rcfg in (("row_intervals_on", tr.rcfg),
+                       ("row_intervals_off", tr.rcfg._replace(
+                           row_intervals=False,
+                           max_dup=size_entry_budget(0, False, False, rect_demand, iv_demand)[1]))):
+        over = []
+
+        def step(state, rcfg=rcfg, over=over):
+            state, aux = TS.train_step(state, *vargs, TS.make_draws(tr.gen, tr.mlp, tr.cfg),
+                                       tr.bg_color, tr.mlp, tr.cfg, rcfg, device=dev)
+            over.append(aux.overflow)
+            return state
+
+        times, tr.state = step_times(step, tr.state, 6)
+        modes[mode] = {"max_dup": rcfg.max_dup, "step_ms": times,
+                       "ms_per_step_median_2_to_6": float(np.median(times[1:])),
+                       **profile_steps(step, tr.state, 3),
+                       "overflow": max(int(n) for n in over)}
+
+    record = {"phase": "trainer", "views": TRAINER_VIEWS, "resolution": [RES, RES],
+              "iterations": TRAINER_ITERS, "argv": argv, "dataset_write_s": dataset_s,
+              "densify_grad_threshold": tr.cfg.optimizer.densify_grad_threshold,
+              "init": tr.init_report,
+              "interval_cut_at_init": 1.0 - iv_demand / rect_demand,
+              "auto_decision": "on" if size_entry_budget(
+                  0, False, True, rect_demand, iv_demand)[0] else "off",
+              "final_max_dup": tr.rcfg.max_dup,
+              "final_capacity": int(tr.state.gauss_state.alive.shape[0]),
+              "final_alive": int(tr.state.gauss_state.alive.sum()),
+              "launches": launches, "train_call_s": train_s, "peak_memory_mb": peak_mb,
+              "iteration_time": "CUDA events between the loop's steps, default log cadence",
+              "ms_per_iteration_median_quiet": float(np.median(quiet)),
+              "quiet_iterations": len(quiet), "iteration_ms": iter_ms,
+              "losses": losses, "logged_iterations": [r["iter"] for r in logged],
+              "overflowed_steps": overflowed,
+              "densify": dens, "densify_ms": [r["ms"] for r in dens],
+              **{f"{name}_ms": [r["ms"] for r in events if r["event"] == name]
+                 for name in ("opacity_reset", "grow_pool", "evaluate", "save")},
+              "load_full_state_s": load_full_s, "load_checkpoint_ply_s": load_ply_s,
+              "reload_full_state_render": "bitwise equal",
+              "reload_ply_render_max_abs_err": ply_err[0],
+              "reload_ply_render_bitwise_equal": bool(torch.equal(img_ply, ref)),
+              "kernels_at_trainer_shapes": {"expand_entries_intervals": a_int, **step_rec},
+              **modes}
+    return launches, a_int_row, step_rows, record
 
 
 def main() -> int:
@@ -813,21 +1236,39 @@ def main() -> int:
     report(record)
     train_launches, record = train_phase(ts, dev)
     report(record)
+    del ts
 
-    # Launches on each main path: serving (A, B) and training (A, B, C, D).
-    by_path = {"expand_entries": (serve_launches[0], train_launches["expand_entries"]),
-               "composite_forward": (serve_launches[1], 0),
-               "composite_forward_c13": (0, train_launches["composite_forward"]),
-               "composite_backward": (0, train_launches["composite_backward"]),
-               "segment_sum_rows": (0, train_launches["segment_sum_rows"])}
-    table += train_table
-    for entry in table:
-        serve_n, train_n = by_path[entry["name"]]
-        entry["launches"] = serve_n + train_n
-        entry["launches_by_path"] = {"serve": serve_n, "train": train_n}
+    report(intervals_phase(host, dev))
+    trainer_launches, iv_entry, trainer_table, record = trainer_phase(host, dev)
+    report(record)
+
+    # Launches on each main path: serving (A, B at C = 3), the training step
+    # (A, B at C = 13, C, D) and the trainer with row intervals (A-int, B at
+    # C = 13, C, D).
+    paths = ("serve", "train", "trainer")
+    t, r = train_launches, trainer_launches
+    by_path = {
+        "expand_entries": (serve_launches[0], t["expand_entries"], r["expand_entries"]),
+        "expand_entries_intervals": (0, t["expand_entries_intervals"],
+                                     r["expand_entries_intervals"]),
+        "composite_forward": (serve_launches[1], 0, 0),
+        "composite_forward_c13": (0, t["composite_forward"], r["composite_forward"]),
+        "composite_backward": (0, t["composite_backward"], r["composite_backward"]),
+        "segment_sum_rows": (0, t["segment_sum_rows"], r["segment_sum_rows"])}
+    # B (C = 13), C and D: the numbers at the training step's shapes, and under
+    # "at_trainer_shapes" those at the trainer's (A-int's row is the trainer's).
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "launches_by_path")
-    emit({"kernels": [{k: e[k] for k in keys} for e in table]})
+    for row, trow in zip(train_table, trainer_table):
+        row["at_trainer_shapes"] = {k: trow[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                         "bound_ms", "bound_by", "library_ms")}
+    table = table[:1] + [iv_entry] + table[1:] + train_table
+    for entry in table:
+        counts = by_path[entry["name"]]
+        entry["launches"] = sum(counts)
+        entry["launches_by_path"] = dict(zip(paths, counts))
+    emit({"kernels": [{k: e[k] for k in keys + ("at_trainer_shapes",) if k in e}
+                      for e in table]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

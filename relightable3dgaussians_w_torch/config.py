@@ -1,19 +1,30 @@
-"""The configuration fields the serving path and the training step read.
+"""Single dataclass config tree: a copy of the JAX package's `config.py`.
 
-A copy of the matching fields of the JAX package's `config.py` (same names,
-same defaults).
+Same section names, field names and defaults, so one `a.b=c` command line or
+YAML file configures either trainer. Defaults mirror the reference's
+`configs/relightable3DG-W.yaml` + optimizer / pipe / dataset groups.
+
+A few runtime fields only steer the TPU package's layout (Pallas chunking,
+tile batching, the split dispatch); they load here and have no effect in the
+port. The options whose code is not ported yet raise `ValueError` naming their
+ROADMAP queue item (`check_ported`) instead of being ignored.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
+from typing import Any
 
 
 @dataclass
 class ModelConfig:
     envlight_sh_degree: int = 4
     sky_sh_degree: int = 1
+    init_embeddings: bool = False     # EmbeddingNet pretraining: not yet ported
+    init_sh_mlp: bool = False         # SH-prior MLP init: not yet ported
     embeddings_dim: int = 32
+    load_iteration: int | None = None
     specular: bool = True
     fix_sky: bool = False
 
@@ -54,16 +65,122 @@ class OptimizerConfig:
 
 
 @dataclass
+class PipelineConfig:
+    convert_SHs_python: bool = False
+    compute_cov3D_python: bool = False
+    debug: bool = False
+
+
+@dataclass
+class DatasetConfig:
+    source_path: str = ""
+    model_path: str = ""
+    test_config_path: str = ""
+    images: str = "images"
+    resolution: int = -1
+    white_background: bool = False
+    eval: bool = False
+    logger: bool = True
+
+
+@dataclass
 class RuntimeConfig:
-    serve_skip_alpha: float = 1.0 / 255.0  # serving LOD threshold
-                                           # (RasterizerConfig.skip_alpha);
-                                           # 1/255 = exact
-    serve_packed_rgb: bool = False         # 12-bit packed R/B entry colors;
-                                           # not yet ported (rasterize raises)
+    """Knobs of the trainer with no reference counterpart."""
+    pool_capacity: int = 0            # 0 => auto from initial point count
+    pool_headroom: float = 8.0        # capacity = headroom * n_init (when auto)
+    max_dup: int = 1 << 21            # rasterizer entry budget; 0 = size from
+                                      # the scene's measured demand at startup
+                                      # (x1.3 headroom; overflow healing still
+                                      # grows it)
+    max_tiles_per_gauss: int = 64     # TPU layout only: no effect in the port
+    lmax_per_tile: int = 2048         # TPU layout only: no effect in the port
+    tile_chunk: int = 8               # TPU layout only: no effect in the port
+    pallas_chunk: int = 512           # TPU layout only: no effect in the port
+    row_intervals: bool = False       # exact per-tile-row ellipse culling in
+                                      # binning (image/gradient-free)
+    row_intervals_auto: bool = True   # probe the interval-cut ratio at startup
+                                      # (trainer._probe_entry_demand) and
+                                      # enable row_intervals when the measured
+                                      # cut >= 15%
+    seed: int = 0
+    detect_anomaly: bool = False      # torch.autograd anomaly detection
+    data_parallel: int = 0            # > 1: not yet ported (ROADMAP queue 8)
+    coordinator_address: str = ""     # multi-host: not yet ported (queue 8)
+    num_processes: int = 0
+    process_id: int = -1
+    gauss_shards: int = 1             # > 1: not yet ported (queue 8)
+    use_pallas: bool = True           # TPU layout only: no effect in the port
+    split_dispatch: bool = True       # TPU layout only: no effect in the port
+    profile_steps: str = ""           # "START:END": torch.profiler trace of those steps
+    tensorboard: bool = False         # mirror train scalars/images/histograms to TB
+    viewer_port: int = 0              # >0: serve the network viewer during training
+    viewer_ip: str = "127.0.0.1"
+    viewer_protocol: str = "sibr"     # "sibr" (stock SIBR remote viewer) or "json"
+    serve_skip_alpha: float = 1.0 / 255.0  # viewer/serving LOD threshold
+                                      # (RasterizerConfig.skip_alpha); 1/255 = exact
+    serve_packed_rgb: bool = False    # 12-bit packed R/B serving colors: not yet
+                                      # ported (rasterize raises)
+    eval_halffit_views: int = 2       # test views given a short left-half
+                                      # embedding fit at eval iterations; with
+                                      # test cameras, > 0 is not yet ported
+                                      # (queue 6)
 
 
 @dataclass
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    pipe: PipelineConfig = field(default_factory=PipelineConfig)
+    dataset: DatasetConfig = field(default_factory=DatasetConfig)
     runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
+
+
+def _apply_override(cfg: Any, dotted: str, value: str):
+    obj = cfg
+    parts = dotted.split(".")
+    for p in parts[:-1]:
+        obj = getattr(obj, p)
+    cur = getattr(obj, parts[-1])
+    if isinstance(cur, bool):
+        value = value.lower() in ("1", "true", "yes")
+    elif isinstance(cur, int):
+        value = int(value)
+    elif isinstance(cur, float):
+        value = float(value)
+    elif cur is None:
+        value = None if value.lower() in ("none", "null") else int(value)
+    setattr(obj, parts[-1], value)
+
+
+def load_config(overrides: list[str] | None = None, yaml_path: str | None = None) -> Config:
+    """Defaults + optional YAML + `a.b=c` overrides. `yaml` is imported only
+    when a YAML file is given."""
+    cfg = Config()
+    if yaml_path:
+        import yaml
+
+        with open(yaml_path) as f:
+            data = yaml.safe_load(f) or {}
+        for section, values in data.items():
+            sub = getattr(cfg, section)
+            for k, v in values.items():
+                setattr(sub, k, v)
+    for ov in overrides or []:
+        key, _, val = ov.partition("=")
+        _apply_override(cfg, key.strip(), val.strip())
+    return cfg
+
+
+def config_to_dict(cfg: Config) -> dict:
+    return dataclasses.asdict(cfg)
+
+
+def check_ported(cfg: Config) -> None:
+    """Raise ValueError for a setting whose code the port does not have yet."""
+    rt = cfg.runtime
+    if rt.data_parallel > 1 or rt.gauss_shards > 1 or rt.coordinator_address:
+        raise ValueError("runtime.data_parallel / gauss_shards / coordinator_address: "
+                         "multi-device training is not yet ported (ROADMAP queue 8)")
+    if cfg.model.init_embeddings or cfg.model.init_sh_mlp:
+        raise ValueError("model.init_embeddings / init_sh_mlp: pretraining is not yet "
+                         "ported (ROADMAP queue 7)")

@@ -3,9 +3,11 @@ package's `models/gaussians.py` (pool layout, activations, construction).
 
 The pool has a fixed capacity with an `alive` mask; foreground and sky Gaussians
 share rows, and `is_sky` selects between `xyz` and the sphere parameterization
-(theta, phi, radius, center). The training step adds the densification
-statistics and the opacity reset; densify, prune and grow arrive with the
-trainer.
+(theta, phi, radius, center). Density control works inside the pool: clone and
+split write into free rows, prune clears `alive`, and the matching rows of the
+optimizer moments are zeroed; when the pool is full the densify report counts
+what did not fit and the trainer grows the pool (`grow`). Every step of it is
+fixed-size tensor work, with no host sync.
 """
 
 from __future__ import annotations
@@ -193,7 +195,184 @@ def augment_with_sky(params: GaussianParams, state: GaussianState,
     return params, state
 
 
+def pad_rows(a: torch.Tensor, new_capacity: int) -> torch.Tensor:
+    """A pool leaf padded with zero rows to `new_capacity` (scalars as they are)."""
+    if a.ndim == 0:
+        return a
+    if new_capacity < a.shape[0]:
+        raise ValueError(f"new capacity {new_capacity} < {a.shape[0]}")
+    return torch.cat([a, a.new_zeros((new_capacity - a.shape[0],) + a.shape[1:])], dim=0)
+
+
+def grow(params: GaussianParams, state: GaussianState, new_capacity: int):
+    """Pad the pool to `new_capacity` rows of zeros (dead rows)."""
+    return (GaussianParams(*[pad_rows(a, new_capacity) for a in params]),
+            state._replace(**{k: pad_rows(getattr(state, k), new_capacity) for k in
+                              ("alive", "is_sky", "max_radii2d", "xyz_grad_accum", "denom")}))
+
+
 # -------------------------------------------------------------- density control
+
+
+class DensifyReport(NamedTuple):
+    n_cloned: torch.Tensor
+    n_split: torch.Tensor
+    n_pruned: torch.Tensor
+    overflow: torch.Tensor  # selected but not allocated: the pool was full
+
+
+def _nonzero_padded(mask: torch.Tensor) -> torch.Tensor:
+    """Indices of the True rows in order, padded to len(mask) with len(mask)
+    (jnp.nonzero(size=cap, fill_value=cap)), with no host sync."""
+    cap = mask.shape[0]
+    idx = torch.argsort((~mask).to(torch.int8), stable=True)
+    return torch.where(torch.arange(cap, device=mask.device) < mask.sum(), idx, cap)
+
+
+def _allocate_slots(free: torch.Tensor, want: torch.Tensor):
+    """Pair the `want` rows with `free` rows, in order. Returns (src_idx [cap],
+    dst_idx [cap], count): the first `count` pairs are copies to make; the rest
+    point at row `cap`, which the writes below skip."""
+    count = torch.minimum(free.sum(), want.sum())
+    return _nonzero_padded(want), _nonzero_padded(free), count
+
+
+def _scatter_rows(a: torch.Tensor, dst: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """a with a[dst[i]] = rows[i], skipping dst[i] == len(a) (JAX's .at[].set
+    mode="drop"): the skipped rows land on a scratch row that is cut off."""
+    out = torch.cat([a, a[:1]], dim=0)
+    out[dst] = rows.to(a.dtype)
+    return out[:-1]
+
+
+def _copy_rows(tree, src_idx, dst_idx, count, transform=None):
+    """tree[dst_idx[i]] = transform(tree)[src_idx[i]] for i < count."""
+    cap = src_idx.shape[0]
+    dst = torch.where(torch.arange(cap, device=src_idx.device) < count, dst_idx, cap)
+    src = torch.clamp(src_idx, 0, cap - 1)
+    ta_tree = tree if transform is None else transform
+    return type(tree)(*[a if a.ndim == 0 else _scatter_rows(a, dst, ta[src])
+                        for a, ta in zip(tree, ta_tree)])
+
+
+def _zero_rows(tree, dst_idx, count):
+    cap = dst_idx.shape[0]
+    dst = torch.where(torch.arange(cap, device=dst_idx.device) < count, dst_idx, cap)
+    return type(tree)(*[a if a.ndim == 0 else _scatter_rows(a, dst, a.new_zeros((cap,) + a.shape[1:]))
+                        for a in tree])
+
+
+def _zero_selected(tree, sel):
+    return type(tree)(*[a if a.ndim == 0 else
+                        torch.where(sel.reshape((-1,) + (1,) * (a.ndim - 1)), 0.0, a)
+                        for a in tree])
+
+
+@torch.no_grad()
+def densify_and_prune(params: GaussianParams, state: GaussianState, opt_moments,
+                      grad_threshold, min_opacity: float, extent, max_screen_size,
+                      percent_dense: float = 0.01, n_split: int = 2,
+                      generator: torch.Generator | None = None,
+                      noise: torch.Tensor | None = None):
+    """Clone small and split large high-gradient Gaussians, then prune: the JAX
+    package's `densify_and_prune` over the fixed pool, op for op.
+
+    Args:
+        opt_moments: tuple of GaussianParams-shaped trees (Adam's mu, nu) whose
+            rows are zeroed where new Gaussians land and where sources split.
+        max_screen_size: None, or the screen-radius prune threshold (which
+            never fires: the stats are reset before the prune, as in the
+            reference).
+        generator / noise: the split samples' standard-normal draws
+            [n_split, cap, 3] come from `generator` (on the pool's device), or
+            are given as `noise`.
+    Returns:
+        (params, state, opt_moments, DensifyReport)
+    """
+    dev = state.alive.device
+    cap = state.alive.shape[0]
+    ar = torch.arange(cap, device=dev)
+    grads = torch.where(state.denom > 0,
+                        state.xyz_grad_accum / torch.clamp_min(state.denom, 1), 0.0)
+    scaling = get_scaling(params)
+    max_scale = torch.max(scaling, dim=-1).values
+    xyz_all = get_xyz(params, state)
+
+    # Clone (small Gaussians): copy the row verbatim.
+    clone_sel = (grads >= grad_threshold) & (max_scale <= percent_dense * extent) & state.alive
+    src_c, dst_c, cnt_c = _allocate_slots(~state.alive, clone_sel)
+    params = _copy_rows(params, src_c, dst_c, cnt_c)
+    dmask = torch.where(ar < cnt_c, dst_c, cap)
+    state = state._replace(
+        alive=_scatter_rows(state.alive, dmask, torch.ones(cap, dtype=torch.bool, device=dev)),
+        is_sky=_scatter_rows(state.is_sky, dmask, state.is_sky[torch.clamp(src_c, 0, cap - 1)]))
+    opt_moments = tuple(_zero_rows(m, dst_c, cnt_c) for m in opt_moments)
+
+    # Split (large Gaussians): n_split samples from the Gaussian with scale /
+    # (0.8 n_split); n_split - 1 new rows, and the source row becomes the last
+    # sample in place.
+    split_sel = (grads >= grad_threshold) & (max_scale > percent_dense * extent) & state.alive
+    R = quat_to_rotmat(get_rotation(params))
+    if noise is None:
+        noise = torch.randn((n_split, cap, 3), generator=generator, device=dev)
+    noise = noise.to(dev) * scaling[None]
+    samples = torch.einsum("nij,snj->sni", R, noise) + xyz_all[None]      # [S, cap, 3]
+    # Sky samples go back onto the sphere at its true radius (the reference
+    # converts back with radius 1).
+    center = state.sky_center[None, None, :]
+    rel = samples - center
+    rel_n = rel * torch.rsqrt(torch.clamp_min(torch.sum(rel * rel, dim=-1, keepdim=True), 1e-20))
+    sky_proj = center + params.sky_radius * rel_n
+    sky_samples = cartesian_to_polar(sky_proj, state.sky_center, params.sky_radius)
+    new_scaling = torch.log(scaling / (0.8 * n_split))
+
+    n_split_sel = split_sel.sum()
+    n_split_alloc = torch.zeros((), dtype=n_split_sel.dtype, device=dev)
+    free_after_clone = ~state.alive
+    for s in range(n_split - 1):
+        split_params = params._replace(
+            xyz=samples[s],
+            sky_angles=torch.where(state.is_sky[:, None], sky_samples[s], params.sky_angles),
+            scaling=new_scaling)
+        src_s, dst_s, cnt_s = _allocate_slots(free_after_clone, split_sel)
+        params = _copy_rows(params, src_s, dst_s, cnt_s, transform=split_params)
+        dmask = torch.where(ar < cnt_s, dst_s, cap)
+        state = state._replace(
+            alive=_scatter_rows(state.alive, dmask,
+                                torch.ones(cap, dtype=torch.bool, device=dev)),
+            is_sky=_scatter_rows(state.is_sky, dmask,
+                                 state.is_sky[torch.clamp(src_s, 0, cap - 1)]))
+        opt_moments = tuple(_zero_rows(m, dst_s, cnt_s) for m in opt_moments)
+        free_after_clone = _scatter_rows(free_after_clone, dmask,
+                                         torch.zeros(cap, dtype=torch.bool, device=dev))
+        n_split_alloc = n_split_alloc + cnt_s
+    last = n_split - 1
+    params = params._replace(
+        xyz=torch.where(split_sel[:, None], samples[last], params.xyz),
+        sky_angles=torch.where((split_sel & state.is_sky)[:, None], sky_samples[last],
+                               params.sky_angles),
+        scaling=torch.where(split_sel[:, None], new_scaling, params.scaling))
+    opt_moments = tuple(_zero_selected(m, split_sel) for m in opt_moments)
+
+    # Reset the stats BEFORE pruning: the reference's densification_postfix
+    # zeroes max_radii2D, so the screen-size prune below compares against zeros
+    # and never fires (kept for parity).
+    state = state._replace(xyz_grad_accum=torch.zeros_like(state.xyz_grad_accum),
+                           denom=torch.zeros_like(state.denom),
+                           max_radii2d=torch.zeros_like(state.max_radii2d))
+
+    opa = get_opacity(params, state)[:, 0]
+    prune = (opa < min_opacity) & state.alive
+    if max_screen_size is not None:
+        prune = (prune | (state.max_radii2d > max_screen_size)
+                 | (torch.max(get_scaling(params), dim=-1).values > 0.1 * extent))
+        prune = prune & state.alive
+    state = state._replace(alive=state.alive & ~prune)
+
+    overflow = (clone_sel.sum() - cnt_c) + ((n_split - 1) * n_split_sel - n_split_alloc)
+    report = DensifyReport(n_cloned=cnt_c, n_split=n_split_sel, n_pruned=prune.sum(),
+                           overflow=overflow)
+    return params, state, opt_moments, report
 
 
 def add_densification_stats(state: GaussianState, mean2d_grad_ndc: torch.Tensor,

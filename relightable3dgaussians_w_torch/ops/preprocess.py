@@ -10,8 +10,9 @@ they are.
 
 The opacity-aware rect tightening with `skip_alpha` is kept: at 1/255 it drops
 only (Gaussian, tile) pairs that both compositors skip, so the image is
-unchanged; larger values are the serving LOD knob. `row_intervals` (train-only)
-is not ported yet.
+unchanged; larger values are the serving LOD knob. `row_intervals` cuts each
+rect further to the ellipse's per-tile-row x-intervals; its counts and packed
+rows equal the JAX package's bitwise.
 
 The float outputs (mean2d, conic, depth, cov3d) are differentiable with
 autograd. The radius and tile-rect chain is derivative-dead (every consumer is
@@ -204,3 +205,89 @@ def _rects(mean2d, cxx, cxy, cyy, det, det_ok, in_front, conic, p_view_z, cov3d,
         rect_max=torch.stack([rx_max, ry_max], dim=-1),
         cov3d=cov3d,
     )
+
+
+H_CAP = 8              # tile rows with exact per-row intervals; deeper rows keep
+                       # the full rect width
+INTERVAL_MARGIN = 1.0  # px of conservative slack on each interval end
+_I32_MIN, _I32_MAX = -(2 ** 31), 2 ** 31 - 1
+
+
+def _f32_to_i32(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> int32 as XLA converts: saturating, NaN -> 0 (a plain cast is
+    undefined out of range)."""
+    return torch.nan_to_num(x.double(), nan=0.0).clamp(_I32_MIN, _I32_MAX).to(torch.int32)
+
+
+def _clip(x, lo, hi):
+    """jnp.clip's op order: minimum(maximum(x, lo), hi)."""
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
+@torch.no_grad()
+def row_intervals(pre: PreprocessOut, opacities: torch.Tensor, tile: int = 16,
+                  skip_alpha: float = 1.0 / 255.0):
+    """Exact per-tile-row x-intervals of each Gaussian's contributing region.
+
+    Where alpha = op * exp(power) can reach 1/255 is the ellipse
+    d^T conic d <= rho^2 with rho^2 = 2 ln(255 op); outside it both compositors
+    skip the entry with exactly zero gradients, so dropping those (Gaussian,
+    tile) pairs changes neither the image nor a gradient. Cut by a horizontal
+    tile-row band the region is one x-interval; for the first H_CAP rows of each
+    rect this gives that interval as packed txl_rel + 128 * w_j (both < 128,
+    exact in float32), and the resulting entry count. Conservative: continuous
+    extent, INTERVAL_MARGIN px of slack each side, clamped to the tightened
+    rect; rows past H_CAP keep the full rect width. The chain has no gradient
+    (the JAX package's stop_gradients) and keeps the JAX op order bit for bit.
+
+    Returns:
+        counts: [N] int32 entries per Gaussian (0 where tiles_touched == 0).
+        packed: [H_CAP, N] float32 integers txl_rel + 128 * w_j.
+    """
+    op = opacities[:, 0] if opacities.ndim == 2 else opacities
+    op = op.detach()
+    m = pre.mean2d.detach()
+    conic = pre.conic.detach()
+    a, b, c = conic[:, 0], conic[:, 1], conic[:, 2]
+    mx, my = m[:, 0], m[:, 1]
+    x0, y0 = pre.rect_min[:, 0], pre.rect_min[:, 1]
+    x1, y1 = pre.rect_max[:, 0], pre.rect_max[:, 1]
+    h = y1 - y0
+    w_full = torch.clamp_min(x1 - x0, 0)
+    zero_i = torch.zeros_like(w_full)
+
+    rho2 = torch.clamp_min(2.0 * torch.log((1.0 / skip_alpha) * torch.clamp_min(op, 1e-12)), 0.0)
+    det_c = torch.clamp_min(a * c - b * b, 1e-30)
+    a_s = torch.clamp_min(a, 1e-30)
+    dx_max = torch.sqrt(torch.clamp_min(rho2 * c / det_c, 0.0))
+    dy_at_xmax = -(b / torch.clamp_min(c, 1e-30)) * dx_max
+    dy_max = torch.sqrt(torch.clamp_min(rho2 * a / det_c, 0.0))
+
+    counts = torch.zeros_like(w_full)
+    packed_rows = []
+    for j in range(H_CAP):
+        ty = y0 + j
+        live = j < h
+        dy0 = ty.to(torch.float32) * tile - my
+        dy1 = dy0 + (tile - 1)
+        lo = torch.maximum(dy0, -dy_max)
+        hi = torch.minimum(dy1, dy_max)
+        nonempty = lo <= hi
+        # x+ is concave in dy (upper boundary): its band max is at the clamped
+        # argmax; x- is convex: its band min at the clamped argmin.
+        dyp = _clip(dy_at_xmax, lo, hi)
+        sp = torch.clamp_min(a_s * rho2 - det_c * dyp * dyp, 0.0)
+        x_hi = mx + (-b * dyp + torch.sqrt(sp)) / a_s + INTERVAL_MARGIN
+        dym = _clip(-dy_at_xmax, lo, hi)
+        sm = torch.clamp_min(a_s * rho2 - det_c * dym * dym, 0.0)
+        x_lo = mx + (-b * dym - torch.sqrt(sm)) / a_s - INTERVAL_MARGIN
+        txl = torch.maximum(_f32_to_i32(torch.floor(x_lo / tile)), x0)
+        txh = torch.minimum(_f32_to_i32(torch.floor(x_hi / tile)) + 1, x1)
+        wj = _clip(txh - txl, zero_i, w_full)
+        wj = torch.where(live & nonempty, wj, 0)
+        txl_rel = torch.clamp(txl - x0, 0, 127)
+        counts = counts + wj
+        packed_rows.append(torch.where(wj > 0, txl_rel + 128 * wj, 0).to(torch.float32))
+    counts = counts + torch.clamp_min(h - H_CAP, 0) * w_full
+    counts = torch.where(pre.tiles_touched > 0, counts, 0).to(torch.int32)
+    return counts, torch.stack(packed_rows, dim=0)

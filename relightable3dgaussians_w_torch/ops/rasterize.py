@@ -23,7 +23,7 @@ import torch
 from ..device import resolve_device
 from .binning import bin_gaussians
 from .cuda import tile_composite as _composite_kernel
-from .preprocess import preprocess
+from .preprocess import preprocess, row_intervals
 from .segment_sum import gather_rows
 
 
@@ -34,7 +34,10 @@ class RasterizerConfig(NamedTuple):
     tile: int = 16
     max_dup: int = 1 << 18           # total (Gaussian, tile) entry budget
     scale_modifier: float = 1.0
-    row_intervals: bool = False      # per-row ellipse culling: not yet ported
+    row_intervals: bool = False      # exact per-tile-row ellipse intervals in
+                                     # binning: drops (Gaussian, tile) pairs
+                                     # outside the alpha >= 1/255 ellipse; the
+                                     # image and gradients do not change
     skip_alpha: float = 1.0 / 255.0  # rect tightening threshold; 1/255 = exact,
                                      # larger = serving LOD (fewer entries, each
                                      # dropped one < skip_alpha per pixel)
@@ -100,9 +103,8 @@ def rasterize(means3d, scales, quats, opacities, colors, bg,
         aux: RasterizeAux
     """
     if cfg.packed_rgb:
-        raise ValueError("RasterizerConfig.packed_rgb is not yet ported to the torch package")
-    if cfg.row_intervals:
-        raise ValueError("RasterizerConfig.row_intervals is not yet ported to the torch package")
+        raise ValueError("RasterizerConfig.packed_rgb is not yet ported to the torch package "
+                         "(ROADMAP queue 5)")
     dev = resolve_device(device)
     means3d, scales, quats, opacities, colors, bg = (
         x.to(dev, torch.float32) for x in (means3d, scales, quats, opacities, colors, bg))
@@ -120,7 +122,9 @@ def rasterize(means3d, scales, quats, opacities, colors, bg,
             skip_alpha=cfg.skip_alpha,
         )
     with stage("rasterize.binning"):
-        binning = bin_gaussians(pre, cfg.grid_x, cfg.grid_y, cfg.max_dup)
+        intervals = (row_intervals(pre, opacities, cfg.tile, skip_alpha=cfg.skip_alpha)
+                     if cfg.row_intervals else None)
+        binning = bin_gaussians(pre, cfg.grid_x, cfg.grid_y, cfg.max_dup, intervals)
     with stage("rasterize.gather"):
         mean2d = pre.mean2d if mean2d_probe is None else pre.mean2d + mean2d_probe.to(dev)
         # Entry rows in sorted order: mean2d, conic, opacity, colors. Slots past

@@ -17,6 +17,9 @@ Port of the JAX package's `train_step.py` (`TrainState`, `StepAux`,
 An entry-budget overflow makes the render, and so every gradient, wrong: the
 step then keeps the old parameters, Adam moments, Adam count and densification
 statistics (selected on the device, no host sync) and only advances `step`.
+Between steps the trainer calls the density-control steps: `densify_step`
+(clone, split, prune, with the Adam moments' rows kept in step),
+`reset_opacity_step` and `grow_train_state` (pool growth).
 
 Each part of the step runs inside a `torch.profiler` range ("train_step.
 to_device", ".leaf_inputs", ".render", ".losses", ".backward", ".adam"; the
@@ -343,6 +346,38 @@ def train_step(state: TrainState, cam: CameraMatrices, gt_image, sky_mask, occlu
         device=dev)
     with torch.profiler.record_function("train_step.adam"):
         return apply_update(state, param_grads, probe_grad, loss, aux, cfg, rcfg)
+
+
+def grow_train_state(state: TrainState, new_capacity: int) -> TrainState:
+    """Pad the Gaussian params, the pool state and both Adam moments to
+    `new_capacity` rows of zeros (what fresh rows would carry)."""
+    params_g, gstate = G.grow(state.params["gaussians"], state.gauss_state, new_capacity)
+
+    def grow_moments(m):
+        return dict(m, gaussians=G.GaussianParams(
+            *[G.pad_rows(a, new_capacity) for a in m["gaussians"]]))
+
+    opt = state.opt_state._replace(mu=grow_moments(state.opt_state.mu),
+                                   nu=grow_moments(state.opt_state.nu))
+    return TrainState(dict(state.params, gaussians=params_g), gstate, opt, state.step)
+
+
+def densify_step(state: TrainState, grad_threshold: float, extent: float, cfg: Config,
+                 max_screen_size=None, generator: torch.Generator | None = None,
+                 noise: torch.Tensor | None = None):
+    """Densify and prune the pool, with the Gaussian rows of both Adam moments
+    kept in step (min opacity 0.005). max_screen_size None is the JAX package's
+    `densify_step`, 20 its `densify_step_sized` (after the first opacity
+    reset). Returns (new TrainState, DensifyReport)."""
+    opt = state.opt_state
+    params_g, gstate, (mu_g, nu_g), report = G.densify_and_prune(
+        state.params["gaussians"], state.gauss_state,
+        (opt.mu["gaussians"], opt.nu["gaussians"]), grad_threshold, 0.005, extent,
+        max_screen_size, percent_dense=cfg.optimizer.percent_dense, generator=generator,
+        noise=noise)
+    new_opt = opt._replace(mu=dict(opt.mu, gaussians=mu_g), nu=dict(opt.nu, gaussians=nu_g))
+    return TrainState(dict(state.params, gaussians=params_g), gstate, new_opt,
+                      state.step), report
 
 
 def reset_opacity_step(state: TrainState) -> TrainState:

@@ -1,15 +1,44 @@
 """General math helpers: port of the JAX package's `utils/general.py` (the parts
-the serving path and the training step use)."""
+the serving path and the trainer use). Random sampling takes an explicit
+`torch.Generator`, or the uniform draws themselves, never torch's global RNG."""
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
 def inverse_sigmoid(x):
     return torch.log(x / (1 - x))
+
+
+def grad_thr_exp_scheduling(it, max_iter, grad_thr_start, grad_thr_end=0.0004):
+    """Log-linear anneal of the densification gradient threshold."""
+    t = it / max_iter
+    return float(np.exp(np.log(grad_thr_start) * (1 - t) + np.log(grad_thr_end) * t))
+
+
+def sample_points_on_unit_hemisphere(num_points: int, generator: torch.Generator | None = None,
+                                     draws=None) -> torch.Tensor:
+    """Points on the upper part of the unit hemisphere in COLMAP coordinates (y
+    down): y in [-0.5, 0), phi in [-pi/4, pi/4]; seeds the sky Gaussians.
+
+    The two uniform [0, 1) draws of length num_points come from `generator`
+    (on its device), or are given as `draws` = (u_y, u_phi)."""
+    if draws is None:
+        dev = generator.device if generator is not None else "cpu"
+        u_y = torch.rand((num_points,), generator=generator, device=dev)
+        u_phi = torch.rand((num_points,), generator=generator, device=dev)
+    else:
+        u_y, u_phi = (torch.as_tensor(np.array(d, np.float32)) for d in draws)
+    y = -0.5 * u_y
+    theta = torch.arccos(y)
+    phi = (math.pi / 2) * u_phi - math.pi / 4
+    x = torch.sin(phi) * torch.sin(theta)
+    z = torch.sin(theta) * torch.cos(phi)
+    return torch.stack([x, y, z], dim=-1)
 
 
 def expon_lr(step, lr_init, lr_final, lr_delay_steps=0, lr_delay_mult=1.0,

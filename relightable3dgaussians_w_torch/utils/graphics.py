@@ -1,16 +1,54 @@
 """Camera / projection / rotation / covariance math.
 
-Port of the JAX package's `utils/graphics.py` (the parts the serving path and
-the training step use).
+Port of the JAX package's `utils/graphics.py`.
 Math convention throughout: `p_view = viewmat @ [p, 1]`.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
+
+
+class BasicPointCloud(NamedTuple):
+    points: np.ndarray
+    colors: np.ndarray
+    normals: np.ndarray
+
+
+def world_to_view(R: np.ndarray, t: np.ndarray, translate=None, scale: float = 1.0) -> np.ndarray:
+    """World->view 4x4 (math convention), the reference's `getWorld2View2`: R is
+    the world-from-cam rotation (COLMAP's cam-from-world transposed), t the
+    cam-from-world translation; an optional translate/scale recentres the
+    camera centre."""
+    Rt = np.zeros((4, 4), dtype=np.float64)
+    Rt[:3, :3] = R.T
+    Rt[:3, 3] = t
+    Rt[3, 3] = 1.0
+    if translate is not None or scale != 1.0:
+        translate = np.zeros(3) if translate is None else np.asarray(translate)
+        C2W = np.linalg.inv(Rt)
+        C2W[:3, 3] = (C2W[:3, 3] + translate) * scale
+        Rt = np.linalg.inv(C2W)
+    return Rt.astype(np.float32)
+
+
+def fov2focal(fov: float, pixels: float) -> float:
+    return pixels / (2 * math.tan(fov / 2))
+
+
+def focal2fov(focal: float, pixels: float) -> float:
+    return 2 * math.atan(pixels / (2 * focal))
+
+
+def camera_intrinsics(fovx: float, fovy: float, W: int, H: int) -> np.ndarray:
+    """3x3 intrinsics with the principal point at W/2, H/2."""
+    fx = fov2focal(fovx, W)
+    fy = fov2focal(fovy, H)
+    return np.array([[fx, 0, W / 2.0], [0, fy, H / 2.0], [0, 0, 1.0]], dtype=np.float32)
 
 
 def projection_matrix(znear: float, zfar: float, fovx: float, fovy: float) -> np.ndarray:

@@ -189,3 +189,77 @@ def test_train_step_on_card_matches_cpu(dev):
     new, aux = TS.train_step(state, *args, device=dev)
     assert int(aux.overflow) == 0 and torch.isfinite(aux.loss)
     assert float(new.gauss_state.xyz_grad_accum.max()) > 0
+
+
+def test_expand_intervals_kernel_matches_plain(dev):
+    """Kernel A-int against the plain interval walk, bitwise: on a frame with
+    one axis stretched 8x (rows taller than 8 tiles among them), with and
+    without a budget overflow, and on hand-made rows (empty rows between
+    nonempty ones, a tall Gaussian, a culled row)."""
+    p, s = synthetic.synthetic_scene(n=20_000, n_sky=2_000, device=dev)
+    cam = synthetic.camera(256, 256, device=dev)
+    opa = G.get_opacity(p, s)[:, 0]
+    scl = G.get_scaling(p) * torch.tensor([1.0, 8.0, 1.0], device=dev)
+    pre = preprocess.preprocess(G.get_xyz(p, s), scl, G.get_rotation(p), cam.viewmat,
+                                cam.projmat, cam.tan_fovx, cam.tan_fovy, 256, 256, 16,
+                                active=s.alive, opacities=opa)
+    counts, packed = preprocess.row_intervals(pre, opa)
+    assert bool(((pre.rect_max[:, 1] - pre.rect_min[:, 1] > 8) & (counts > 0)).any())
+    n = pre.depth.shape[0]
+    offsets = torch.cumsum(counts, 0, dtype=torch.int64) - counts
+    rank = torch.empty(n, dtype=torch.int64, device=dev)
+    rank[torch.argsort(pre.depth, stable=True)] = torch.arange(n, device=dev)
+    rect_w = torch.clamp_min(pre.rect_max[:, 0] - pre.rect_min[:, 0], 1).int().contiguous()
+    total = int(counts.sum())
+    cases = [(counts, offsets, pre.rect_min.contiguous(), rect_w, rank, 16, max_dup,
+              packed.to(torch.int32).contiguous()) for max_dup in (total + 1000, total // 2)]
+    packed_h = torch.zeros((8, 4), dtype=torch.int32)
+    packed_h[0, 0], packed_h[2, 0], packed_h[5, 0] = 1 + 128 * 2, 128 * 3, 3 + 128
+    packed_h[:, 1] = 128 * 4
+    packed_h[1, 2], packed_h[4, 2] = 2 + 128, 128 * 3
+    packed_h[0, 3] = 128 * 2
+    counts_h = torch.tensor([6, 44, 4, 0], dtype=torch.int32)
+    cases.append(tuple(x.to(dev) if isinstance(x, torch.Tensor) else x for x in (
+        counts_h, torch.cumsum(counts_h, 0) - counts_h,
+        torch.tensor([[2, 1], [0, 0], [5, 3], [1, 2]], dtype=torch.int32),
+        torch.tensor([6, 4, 3, 2], dtype=torch.int32), torch.tensor([3, 0, 2, 1]), 20, 40,
+        packed_h)))
+    for *args, packed_i in cases:
+        before = expand_kernel.interval_launches
+        keys, gid = expand_kernel.expand_entries(*args, packed=packed_i)
+        torch.cuda.synchronize()
+        assert expand_kernel.interval_launches == before + 1
+        p_keys, p_gid = binning.expand_entries_plain(*args, packed=packed_i)
+        assert torch.equal(keys, p_keys) and torch.equal(gid, p_gid)
+
+
+def test_interval_render_matches_rect_render(dev):
+    """A small anisotropic scene on the card: the render and the gradients of
+    its five inputs with row intervals on equal the rect render's (the JAX
+    test's gates), with fewer entries and a launch of kernel A-int."""
+    p, s = synthetic.synthetic_scene(n=20_000, n_sky=2_000, device=dev)
+    cam = synthetic.camera(256, 256, device=dev)
+    xyz, quat = G.get_xyz(p, s), G.get_rotation(p)
+    scl = G.get_scaling(p) * torch.tensor([6.0, 1.0, 1.0], device=dev)
+    opa = G.get_opacity(p, s)[:, 0]
+    colors = torch.rand((xyz.shape[0], 3), generator=torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    w = torch.randn((256, 256, 3), generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev)
+    out = {}
+    for flag in (False, True):
+        rcfg = rasterize.RasterizerConfig(width=256, height=256, max_dup=1 << 21,
+                                          row_intervals=flag)
+        leaves = [t.detach().clone().requires_grad_(True) for t in (xyz, scl, quat, opa, colors)]
+        before = expand_kernel.interval_launches
+        img, aux = rasterize.rasterize(*leaves, torch.zeros(3, device=dev), cam, rcfg,
+                                       active=s.alive, device=dev)
+        assert expand_kernel.interval_launches == before + int(flag)
+        (torch.sum(img * w) + torch.sum(aux.alpha)).backward()
+        out[flag] = (img.detach(), aux.alpha.detach(), [t.grad for t in leaves],
+                     int(aux.num_entries), int(aux.overflow))
+    assert out[True][3] < out[False][3] and out[True][4] == out[False][4] == 0
+    assert float((out[True][0] - out[False][0]).abs().max()) <= 2e-6
+    assert float((out[True][1] - out[False][1]).abs().max()) <= 2e-6
+    for g0, g1 in zip(out[False][2], out[True][2]):
+        assert float((g1 - g0).abs().max()) <= 5e-4 * float(g0.abs().max())

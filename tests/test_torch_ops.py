@@ -188,9 +188,17 @@ def test_rasterize_matches_jax_pallas_interpret():
 
 @pytest.mark.parametrize("field", ["packed_rgb", "row_intervals"])
 def test_unported_options_raise(field):
+    """packed_rgb (a serving option) is not ported yet and raises;
+    row_intervals is ported and renders what the rects render, from no more
+    entries."""
     arrs, cam, cfg, _ = make_scene(n=20, seed=0)
     rcfg = torch_rcfg(cfg)._replace(**{field: True})
-    with pytest.raises(ValueError, match="not yet ported"):
-        rasterize.rasterize(
-            *[to_t(arrs[k]) for k in ("means3d", "scales", "quats", "opacities", "colors", "bg")],
-            torch_cam(cam), rcfg, device="cpu")
+    args = [to_t(arrs[k]) for k in ("means3d", "scales", "quats", "opacities", "colors", "bg")]
+    if field == "packed_rgb":
+        with pytest.raises(ValueError, match="not yet ported"):
+            rasterize.rasterize(*args, torch_cam(cam), rcfg, device="cpu")
+        return
+    img, aux = rasterize.rasterize(*args, torch_cam(cam), rcfg, device="cpu")
+    ref, ref_aux = rasterize.rasterize(*args, torch_cam(cam), torch_rcfg(cfg), device="cpu")
+    np.testing.assert_allclose(img.numpy(), ref.numpy(), atol=2e-6, rtol=0)
+    assert 0 < int(aux.num_entries) <= int(ref_aux.num_entries)
