@@ -61,7 +61,31 @@ Gaussians, random MLP weights from a seed), then:
             PLY reloads rendering view 0 as the trained state does, and steps
             with row intervals on and off (times and profiled stages); init,
             per-iteration (CUDA events between the loop's steps, no pull of
-            its own) and event times.
+            its own) and event times;
+10. serve_packed: the serve phase's sweep with runtime.serve_packed_rgb=true:
+            each frame checked for its byte count, a zero entry overflow,
+            launches of the packed compositor B' and none of B, and every byte
+            within 1 of the exact frame at the same camera; on the first
+            frame's inputs B' against its plain version (image tolerance) and
+            bitwise against B fed the dequantized colors, with times and
+            bounds; served ms per frame beside the exact mode's;
+11. eval:   the trainer phase's dataset with dataset.eval=true (view 0 held
+            out), a 256x512 equirect envmap with a sun and a 1000x1000
+            evaluation mask from np.random.RandomState, through
+            `cli.full_eval.main` (train EVAL_ITERS iterations with the defaults
+            and a demand-sized budget; render train and test sets at 21
+            channels with a 100-step test-embedding fit; metrics --half; the
+            51-angle GT-envmap sweep), then `cli.eval_white_light.main` and
+            `cli.relit_novel_view.main --steps=RELIT_STEPS` on its checkpoint:
+            every artifact present, every metric finite, no entry overflow in
+            any render after training, launches of B at 13, 21 and 51
+            channels and of C and D; B at C = 21 (the first render) and C = 51
+            (the sweep's first group) against its plain version with times and
+            bounds; wall seconds of each stage.
+
+Depth cuts: the trainer phase runs 60 of the default 40,000 iterations, the
+eval phase EVAL_ITERS = 30 and RELIT_STEPS = 8 of the relighting CLI's 30
+frames; no width is cut.
 
 Each phase prints one JSON line, with the card's nvidia-smi name and power
 limit under "card". The last lines are the kernel table, the
@@ -72,7 +96,11 @@ no CUDA device is present.
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import copy
 import json
+import os
 import shutil
 import socket
 import struct
@@ -86,6 +114,12 @@ import numpy as np
 import torch
 
 from relightable3dgaussians_w_torch import synthetic, train_step as TS, viewer
+from relightable3dgaussians_w_torch.cli import eval_gt_envmaps as cli_eval_gt
+from relightable3dgaussians_w_torch.cli import eval_white_light as cli_white
+from relightable3dgaussians_w_torch.cli import full_eval as cli_full_eval
+from relightable3dgaussians_w_torch.cli import metrics as cli_metrics
+from relightable3dgaussians_w_torch.cli import relit_novel_view as cli_relit
+from relightable3dgaussians_w_torch.cli import render as cli_render
 from relightable3dgaussians_w_torch.cli import train as cli_train
 from relightable3dgaussians_w_torch.config import Config
 from relightable3dgaussians_w_torch.data.ply import write_ply
@@ -115,6 +149,13 @@ ORBIT_CENTER = np.array([0.0, 0.0, 4.5])   # middle of the scene's depth range
 TRAINER_SCHEDULE = ["optimizer.densify_from_iter=10", "optimizer.densification_interval=10",
                     "optimizer.opacity_reset_interval=30", "optimizer.densify_until_iter=55"]
 WORK_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
+SCENE = "synthetic"                     # the trainer phase's dataset, reused by eval
+SCENE_DIR = WORK_DIR / "data" / SCENE
+EVAL_ITERS = 30
+RELIT_STEPS = 8
+# Float ops of kernel B' unpacking one staged row: rb * 2^-12, floor, q_r * 4096,
+# the remainder, and the two dequantizing products.
+UNPACK_OPS_PER_ROW = 6
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM data sheet, float32 outside tensor cores
 EXPAND_OPS_PER_SLOT = 4        # integer ops per written slot
@@ -315,33 +356,15 @@ def kernels_phase(host, dev):
         raise AssertionError(f"entry budget overflow {int(b.overflow)} on the first frame")
     feat = torch.cat([pre.mean2d, pre.conic, opa[:, None], rgb], -1)[b.gauss_id.long()]
     feat = feat.contiguous()
-    bg = host.bg_color
-    out_k = composite_kernel.composite_forward(feat, b.tile_start, b.tile_end, bg, gx, gy)
-    out_p = composite.composite_forward(feat, b.tile_start, b.tile_end, bg, gx, gy)
-    torch.cuda.synchronize()
-    img_k, tfin_k = rasterize._assemble_image(*out_k, rcfg, 3)
-    img_p, tfin_p = rasterize._assemble_image(*out_p, rcfg, 3)
-    if not torch.isfinite(img_k).all():
-        raise AssertionError("compositor kernel produced non-finite values")
-    img_err = check_image(img_k, img_p, "composite_forward image")
-    alpha_err = check_image(tfin_k, tfin_p, "composite_forward final transmittance")
-    b_ms = median_ms(lambda: composite_kernel.composite_forward(
-        feat, b.tile_start, b.tile_end, bg, gx, gy), 20)
-    b_plain_ms = median_ms(lambda: composite.composite_forward(
-        feat, b.tile_start, b.tile_end, bg, gx, gy), 10)
-    pairs = pair_counts(feat, b.tile_start, b.tile_end, gx)
-    T, P = gx * gy, 256
-    b_bound = bound(total * feat.shape[1] * 4 + T * 2 * 8 + 3 * 4 + T * P * 4 * 4,
-                    compositor_ops(composite_ops_per_pair(3), pairs))
+    b_row, b_rec, out_k = hold_forward((feat, b.tile_start, b.tile_end, host.bg_color, gx, gy),
+                                       "composite_forward at C = 3")
+    img_k, _ = rasterize._assemble_image(*out_k, rcfg, 3)
 
     record = {"phase": "kernels", "frame": "yaw -10, embedding 0, 800x800",
           "gaussians": n, "entries": total, "max_dup": rcfg.max_dup,
-          "pairs": pairs,
+          "pairs": b_rec["pairs"],
           "expand": {"keys_ids_bitwise_equal": True, "ms": a_ms, "plain_ms": a_plain_ms},
-          "composite": {"image_max_abs_err": img_err[0], "image_frac_over_1e-3": img_err[1],
-                        "image_median_err": img_err[2], "tfin_max_abs_err": alpha_err[0],
-                        "tfin_frac_over_1e-3": alpha_err[1], "crop": "none (full 800x800)",
-                        "ms": b_ms, "plain_ms": b_plain_ms}}
+          "composite": b_rec}
     table = [
         dict(name="expand_entries", route="cuda",
              source="relightable3dgaussians_w_torch/csrc/expand.cu",
@@ -350,9 +373,7 @@ def kernels_phase(host, dev):
              bound_by=a_bound[1], library_ms=None),
         dict(name="composite_forward", route="cuda",
              source="relightable3dgaussians_w_torch/csrc/tile_composite.cu",
-             replaces="relightable3dgaussians_w_tpu/ops/pallas/tile_composite.py:193",
-             max_abs_err=img_err[0], ms=b_ms, plain_ms=b_plain_ms, bound_ms=b_bound[0],
-             bound_by=b_bound[1], library_ms=None),
+             replaces="relightable3dgaussians_w_tpu/ops/pallas/tile_composite.py:193", **b_row),
     ]
     return table, img_k, record
 
@@ -445,9 +466,10 @@ def _client(port, fov, frames, result, done):
         done.set()
 
 
-def serve_phase(host, cam0, ref_img, dev):
-    expand_kernel.launches = 0
-    composite_kernel.launches = 0
+def serve_frames(host, cam0, dev):
+    """FRAMES json requests (yaw -10..10) from a client thread through the port's
+    ViewerServer: the client's [(seconds, frame bytes)] and, per served frame,
+    the kernels' launches, the entry overflow and the entry count."""
     server = viewer.ViewerServer(port=0, protocol="json", device=dev)
     fov = 2 * float(np.arctan(float(cam0.tan_fovx)))
     result, done = [], threading.Event()
@@ -458,11 +480,12 @@ def serve_phase(host, cam0, ref_img, dev):
     try:
         deadline = time.time() + 600
         while not done.is_set() and time.time() < deadline:
-            a0, b0 = expand_kernel.launches, composite_kernel.launches
+            before = read_launches()
             if viewer.handle_viewer_request(server, host):
-                per_frame.append((expand_kernel.launches - a0, composite_kernel.launches - b0,
-                                  int(server.last_aux.overflow),
-                                  int(server.last_aux.num_entries)))
+                after = read_launches()
+                per_frame.append(dict({k: after[k] - before[k] for k in after},
+                                      overflow=int(server.last_aux.overflow),
+                                      entries=int(server.last_aux.num_entries)))
             else:
                 time.sleep(0.001)
         client.join(timeout=60)
@@ -473,13 +496,21 @@ def serve_phase(host, cam0, ref_img, dev):
         raise errors[0]
     if len(result) != FRAMES or len(per_frame) != FRAMES:
         raise AssertionError(f"served {len(per_frame)} frames, client got {len(result)}")
-    for i, ((_, buf), (da, db, ovf, _)) in enumerate(zip(result, per_frame)):
+    for i, ((_, buf), f) in enumerate(zip(result, per_frame)):
         if len(buf) != RES * RES * 3:
             raise AssertionError(f"frame {i}: {len(buf)} bytes")
-        if ovf != 0:
-            raise AssertionError(f"frame {i}: entry overflow {ovf}")
-        if da < 1 or db < 1:
-            raise AssertionError(f"frame {i}: kernel launches expand={da} composite={db}")
+        if f["overflow"] != 0:
+            raise AssertionError(f"frame {i}: entry overflow {f['overflow']}")
+    return result, per_frame
+
+
+def serve_phase(host, cam0, ref_img, dev):
+    reset_launches()
+    result, per_frame = serve_frames(host, cam0, dev)
+    launches = read_launches()
+    for i, f in enumerate(per_frame):
+        if f["expand_entries"] < 1 or f["composite_forward"] < 1:
+            raise AssertionError(f"frame {i}: kernel launches {f}")
     # The first request is the kernel phase's frame: same bytes up to a
     # truncation at a float boundary.
     first = np.frombuffer(result[0][1], np.uint8).astype(int)
@@ -491,14 +522,98 @@ def serve_phase(host, cam0, ref_img, dev):
         raise AssertionError("served frame is constant")
     steady = [t * 1e3 for t, _ in result[1:]]
     record = {"phase": "serve", "frames": FRAMES, "resolution": [RES, RES],
-          "entries_per_frame": [f[3] for f in per_frame], "overflow": 0,
-          "launches": {"expand_entries": expand_kernel.launches,
-                       "composite_forward": composite_kernel.launches},
+          "entries_per_frame": [f["entries"] for f in per_frame], "overflow": 0,
+          "launches": {k: launches[k] for k in ("expand_entries", "composite_forward")},
           "first_frame_ms": result[0][0] * 1e3,
           "steady_ms_per_frame_mean": float(np.mean(steady)),
           "steady_ms_per_frame_median": float(np.median(steady)),
           "first_frame_bytes_off_by_one": int((diff > 0).sum())}
-    return (expand_kernel.launches, composite_kernel.launches), record
+    return launches, result, record
+
+
+def serve_packed_phase(host, cam0, exact, exact_record, dev):
+    """The serve phase's sweep with runtime.serve_packed_rgb=true (kernel B'),
+    each frame against the exact mode's frame `exact` at the same camera; then
+    B' on the first frame's inputs against its plain version and against B on
+    the dequantized colors."""
+    cfg = copy.deepcopy(host.cfg)
+    cfg.runtime.serve_packed_rgb = True
+    phost = ServingHost(host.W, host.H, host.rcfg, cfg, host.mlp, host.state, host.bg_color)
+    reset_launches()
+    result, per_frame = serve_frames(phost, cam0, dev)
+    launches = read_launches()
+    off_by_one, max_diff = [], 0
+    for i, (f, (_, buf), (_, ebuf)) in enumerate(zip(per_frame, result, exact)):
+        if f["composite_forward_packed"] < 1 or f["composite_forward"] != 0 \
+                or f["expand_entries"] < 1:
+            raise AssertionError(f"packed frame {i}: kernel launches {f}")
+        diff = np.abs(np.frombuffer(buf, np.uint8).astype(int) - np.frombuffer(ebuf, np.uint8))
+        if diff.max() > 1:
+            raise AssertionError(f"packed frame {i}: a byte differs by {diff.max()} from the "
+                                 "exact frame")
+        off_by_one.append(int((diff > 0).sum()))
+        max_diff = max(max_diff, int(diff.max()))
+
+    # B' on the first frame's inputs.
+    rcfg = host.rcfg
+    gx, gy = rcfg.grid_x, rcfg.grid_y
+    cam, xyz, scl, quat, opa, rgb = frame_inputs(host, -10.0, dev)
+    pre = preprocess.preprocess(xyz, scl, quat, cam.viewmat, cam.projmat, cam.tan_fovx,
+                                cam.tan_fovy, RES, RES, 16, active=host.state.gauss_state.alive,
+                                opacities=opa, skip_alpha=rcfg.skip_alpha)
+    b = binning.bin_gaussians(pre, gx, gy, rcfg.max_dup)
+    if int(b.overflow) != 0:
+        raise AssertionError(f"entry budget overflow {int(b.overflow)} on the first frame")
+    rb, g = composite.pack_rb(rgb)
+    head = torch.cat([pre.mean2d, pre.conic, opa[:, None]], -1)
+    gid = b.gauss_id.long()
+    packed = torch.cat([head, rb[:, None], g[:, None]], -1)[gid].contiguous()
+    deq = torch.cat([head, composite.unpack_rb(rb, g)], -1)[gid].contiguous()
+    args = (b.tile_start, b.tile_end, host.bg_color, gx, gy)
+    out_k = composite_kernel.composite_forward_packed(packed, *args)
+    out_b = composite_kernel.composite_forward(deq, *args)
+    out_p = composite.composite_forward_packed(packed, *args)
+    torch.cuda.synchronize()
+    if not (torch.equal(out_k[0], out_b[0]) and torch.equal(out_k[1], out_b[1])):
+        raise AssertionError("B' differs from B on the dequantized colors")
+    img_k, tfin_k = rasterize._assemble_image(*out_k, rcfg, 3)
+    img_p, tfin_p = rasterize._assemble_image(*out_p, rcfg, 3)
+    img_err = check_image(img_k, img_p, "composite_forward_packed image")
+    tfin_err = check_image(tfin_k, tfin_p, "composite_forward_packed final transmittance")
+    k_ms = median_ms(lambda: composite_kernel.composite_forward_packed(packed, *args), 20)
+    b_ms = median_ms(lambda: composite_kernel.composite_forward(deq, *args), 20)
+    p_ms = median_ms(lambda: composite.composite_forward_packed(packed, *args), 10)
+    entries = int(b.num_entries)
+    pairs = pair_counts(deq, b.tile_start, b.tile_end, gx)
+    T, P = gx * gy, 256
+    k_bound = bound(entries * 8 * 4 + T * 2 * 8 + 3 * 4 + T * P * 4 * 4,
+                    compositor_ops(composite_ops_per_pair(3), pairs)
+                    + UNPACK_OPS_PER_ROW * entries)
+    steady = [t * 1e3 for t, _ in result[1:]]
+    record = {"phase": "serve_packed", "frames": FRAMES, "resolution": [RES, RES],
+              "entries_per_frame": [f["entries"] for f in per_frame], "overflow": 0,
+              "launches": {k: launches[k] for k in ("expand_entries", "composite_forward",
+                                                     "composite_forward_packed")},
+              "bytes_off_by_one_vs_exact_per_frame": off_by_one,
+              "max_byte_diff_vs_exact": max_diff,
+              "first_frame_ms": result[0][0] * 1e3,
+              "steady_ms_per_frame_median": float(np.median(steady)),
+              "steady_ms_per_frame_mean": float(np.mean(steady)),
+              "exact_first_frame_ms": exact_record["first_frame_ms"],
+              "exact_steady_ms_per_frame_median": exact_record["steady_ms_per_frame_median"],
+              "kernel_first_frame": {
+                  "entries": entries, "pairs": pairs,
+                  "b_prime_bitwise_equal_to_b_on_dequantized": True,
+                  "image_max_abs_err": img_err[0], "image_frac_over_1e-3": img_err[1],
+                  "image_median_err": img_err[2], "tfin_max_abs_err": tfin_err[0],
+                  "b_prime_ms": k_ms, "b_on_dequantized_ms": b_ms, "plain_ms": p_ms,
+                  "bound_ms": k_bound[0]}}
+    row = dict(name="composite_forward_packed", route="cuda",
+               source="relightable3dgaussians_w_torch/csrc/tile_composite.cu",
+               replaces="relightable3dgaussians_w_tpu/ops/pallas/tile_composite.py:249",
+               max_abs_err=img_err[0], ms=k_ms, plain_ms=p_ms, bound_ms=k_bound[0],
+               bound_by=k_bound[1], library_ms=None)
+    return launches, row, record
 
 
 def reference_phase(dev):
@@ -609,20 +724,9 @@ def hold_step_kernels(x, rcfg, dev):
     C = feat.shape[1] - 6
     T, P = gx * gy, 256
     entries = x["entries"]
-    pairs = pair_counts(feat, ts_, te_, gx)
 
-    # B at C = 13
-    out_k = composite_kernel.composite_forward(feat, ts_, te_, bg, gx, gy)
-    out_p = composite.composite_forward(feat, ts_, te_, bg, gx, gy)
-    img_k, _ = rasterize._assemble_image(*out_k, rcfg, C)
-    img_p, _ = rasterize._assemble_image(*out_p, rcfg, C)
-    if not torch.isfinite(img_k).all():
-        raise AssertionError("compositor kernel (C = 13) produced non-finite values")
-    b_err = check_image(img_k, img_p, "composite_forward image at C = 13")
-    b_ms = median_ms(lambda: composite_kernel.composite_forward(feat, ts_, te_, bg, gx, gy), 20)
-    b_plain_ms = median_ms(lambda: composite.composite_forward(feat, ts_, te_, bg, gx, gy), 3)
-    b_bound = bound(entries * feat.shape[1] * 4 + T * 2 * 8 + C * 4 + T * P * (C + 1) * 4,
-                    compositor_ops(composite_ops_per_pair(C), pairs))
+    b_row, b_rec, _ = hold_forward((feat, ts_, te_, bg, gx, gy), "composite_forward at C = 13")
+    pairs = b_rec["pairs"]
 
     # C: compositor backward
     args = (feat, ts_, te_, bg, rgb, tfin, g_rgb, g_tfin, gx, gy)
@@ -670,10 +774,7 @@ def hold_step_kernels(x, rcfg, dev):
     d_bound = bound(entries * (F * 4 + 4) + n * F * 4, entries * F)
 
     record = {"gaussians": n, "entries": entries, "slots": D, "pairs": pairs,
-              "composite_forward_c13": {"image_max_abs_err": b_err[0],
-                                        "image_frac_over_1e-3": b_err[1],
-                                        "image_median_err": b_err[2], "ms": b_ms,
-                                        "plain_ms": b_plain_ms},
+              "composite_forward_c13": b_rec,
               "composite_backward": {"max_rel_err_by_group": c_rel, "bitwise_repeatable": True,
                                      "d_bg_max_abs_err": float((dbg_k - dbg_p).abs().max()),
                                      "ms": c_ms, "plain_ms": c_plain_ms},
@@ -682,9 +783,7 @@ def hold_step_kernels(x, rcfg, dev):
     cu = "relightable3dgaussians_w_torch/csrc/"
     table = [
         dict(name="composite_forward_c13", route="cuda", source=cu + "tile_composite.cu",
-             replaces="relightable3dgaussians_w_tpu/ops/pallas/tile_composite.py:193",
-             max_abs_err=b_err[0], ms=b_ms, plain_ms=b_plain_ms, bound_ms=b_bound[0],
-             bound_by=b_bound[1], library_ms=None),
+             replaces="relightable3dgaussians_w_tpu/ops/pallas/tile_composite.py:193", **b_row),
         dict(name="composite_backward", route="cuda", source=cu + "tile_composite.cu",
              replaces="relightable3dgaussians_w_tpu/ops/pallas/tile_composite.py:327",
              max_abs_err=c_err, ms=c_ms, plain_ms=c_plain_ms, bound_ms=c_bound[0],
@@ -738,6 +837,7 @@ def train_kernels_phase(ts, dev):
 KERNELS = {"expand_entries": (expand_kernel, "launches"),
            "expand_entries_intervals": (expand_kernel, "interval_launches"),
            "composite_forward": (composite_kernel, "launches"),
+           "composite_forward_packed": (composite_kernel, "packed_launches"),
            "composite_backward": (composite_kernel, "backward_launches"),
            "segment_sum_rows": (segment_sum_kernel, "launches")}
 
@@ -1053,10 +1153,10 @@ def trainer_phase(host, dev):
     gives them, the two reloads, and steps with row intervals on and off."""
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     t0 = time.perf_counter()
-    write_dataset(host, WORK_DIR / "scene", dev)
+    write_dataset(host, SCENE_DIR, dev)
     dataset_s = time.perf_counter() - t0
     out = WORK_DIR / "out"
-    argv = [f"dataset.source_path={WORK_DIR / 'scene'}", f"dataset.model_path={out}",
+    argv = [f"dataset.source_path={SCENE_DIR}", f"dataset.model_path={out}",
             f"optimizer.iterations={TRAINER_ITERS}", "runtime.max_dup=0",
             "runtime.row_intervals=true", *TRAINER_SCHEDULE, f"--device={dev.type}"]
     torch.cuda.synchronize()
@@ -1201,6 +1301,204 @@ def trainer_phase(host, dev):
     return launches, a_int_row, step_rows, record
 
 
+class ForwardRecorder:
+    """Stands in for `composite_kernel.composite_forward` during the eval phase:
+    counts the calls by channel count (each call launches kernel B once) and
+    keeps the inputs of the first call of each channel count in `keep`."""
+
+    def __init__(self, keep):
+        self.inner, self.keep = composite_kernel.composite_forward, keep
+        self.calls, self.kept = collections.Counter(), {}
+
+    def __call__(self, feat, tile_start, tile_end, bg, grid_x, grid_y, tile=16):
+        C = feat.shape[1] - 6
+        self.calls[C] += 1
+        if C in self.keep and C not in self.kept:
+            self.kept[C] = (feat, tile_start, tile_end, bg, grid_x, grid_y)
+        return self.inner(feat, tile_start, tile_end, bg, grid_x, grid_y, tile)
+
+
+class BinningRecorder:
+    """Stands in for the rasterizer's `bin_gaussians`: keeps each render's entry
+    overflow on the device, labelled with the running stage."""
+
+    def __init__(self, stage):
+        self.inner, self.stage, self.out = rasterize.bin_gaussians, stage, []
+
+    def __call__(self, *args, **kwargs):
+        b = self.inner(*args, **kwargs)
+        self.out.append((self.stage[0], b.overflow))
+        return b
+
+
+@contextlib.contextmanager
+def timed_stages(stages, times, stage):
+    """Time each CLI's `main` (name -> module) while it runs, and name the running
+    stage in stage[0]."""
+    mains = {name: mod.main for name, mod in stages.items()}
+
+    def timed(name, fn):
+        def run(argv=None):
+            stage[0] = name
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(argv)
+            torch.cuda.synchronize()
+            times[name] = time.perf_counter() - t0
+            return out
+        return run
+
+    try:
+        for name, mod in stages.items():
+            mod.main = timed(name, mains[name])
+        yield
+    finally:
+        for name, mod in stages.items():
+            mod.main = mains[name]
+
+
+def write_eval_inputs(data_root: Path):
+    """A 256x512 equirect envmap (dim noise and one sun, from RandomState(0)),
+    a 1000x1000 evaluation mask and the test config of view_00 (the view that
+    dataset.eval=true holds out)."""
+    from PIL import Image
+
+    rng = np.random.RandomState(0)
+    env = rng.uniform(0.02, 0.15, (256, 512, 3))
+    yy, xx = np.mgrid[:256, :512]
+    sun_y, sun_x = rng.randint(20, 90), rng.randint(0, 512)
+    env[np.hypot(yy - sun_y, xx - sun_x) < 12] = 1.0
+    env_path = data_root / "envmap_view_00.png"
+    Image.fromarray((env * 255).astype(np.uint8)).save(env_path)
+    mask = np.zeros((1000, 1000), np.uint8)
+    mask[60:940, 40:960] = 255
+    my, mx = np.mgrid[:1000, :1000]
+    mask[np.hypot(my - 500, mx - 620) < 90] = 0        # an occluder
+    mask_path = data_root / "mask_view_00.png"
+    Image.fromarray(mask).save(mask_path)
+    tc = data_root / "test_configs" / SCENE
+    tc.mkdir(parents=True, exist_ok=True)
+    (tc / "test_config.json").write_text(json.dumps({"view_00": {
+        "env_map_path": str(env_path), "mask_path": str(mask_path),
+        "initial_env_map_rotation": {"x": 0.0, "y": 0.0, "z": 0.0}, "sun_angles": [0, 360],
+        "env_map_scaling": {"threshold": 0.999, "scale": 10}}}))
+    return env_path
+
+
+def hold_forward(call, label):
+    """Kernel B on one call's inputs against its plain version (image tolerance
+    on the tiles), with times and bound: (row fields, record, kernel output)."""
+    feat, ts_, te_, bg, gx, gy = call
+    C = feat.shape[1] - 6
+    out_k = composite_kernel.composite_forward(feat, ts_, te_, bg, gx, gy)
+    out_p = composite.composite_forward(feat, ts_, te_, bg, gx, gy)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out_k[0]).all():
+        raise AssertionError(f"{label}: non-finite values")
+    err = check_image(out_k[0], out_p[0], f"{label} image")
+    tfin_err = check_image(out_k[1], out_p[1], f"{label} final transmittance")
+    k_ms = median_ms(lambda: composite_kernel.composite_forward(feat, ts_, te_, bg, gx, gy), 20)
+    p_ms = median_ms(lambda: composite.composite_forward(feat, ts_, te_, bg, gx, gy), 3)
+    entries = int((te_ - ts_).sum())
+    pairs = pair_counts(feat, ts_, te_, gx)
+    T, P = gx * gy, 256
+    b_bound = bound(entries * feat.shape[1] * 4 + T * 2 * 8 + C * 4 + T * P * (C + 1) * 4,
+                    compositor_ops(composite_ops_per_pair(C), pairs))
+    row = dict(max_abs_err=err[0], ms=k_ms, plain_ms=p_ms, bound_ms=b_bound[0],
+               bound_by=b_bound[1], library_ms=None)
+    return row, {"channels": C, "entries": entries, "pairs": pairs, "image_max_abs_err": err[0],
+                 "image_frac_over_1e-3": err[1], "image_median_err": err[2],
+                 "tfin_max_abs_err": tfin_err[0], "ms": k_ms, "plain_ms": p_ms,
+                 "bound_ms": b_bound[0]}, out_k
+
+
+def eval_phase(dev):
+    """The evaluation / relighting path at full width: `cli.full_eval.main` on the
+    trainer phase's dataset with a GT envmap for the held-out view, then the
+    white-light and relighting CLIs on the same checkpoint."""
+    data_root = SCENE_DIR.parent
+    env_path = write_eval_inputs(data_root)
+    out = WORK_DIR / "eval"
+    mp = out / SCENE
+    overrides = [f"optimizer.iterations={EVAL_ITERS}", "runtime.max_dup=0"]
+    common = [f"dataset.source_path={SCENE_DIR}", f"dataset.model_path={mp}",
+              "dataset.eval=true", *overrides, f"model.load_iteration={EVAL_ITERS}"]
+    stages = {"train": cli_train, "render": cli_render, "metrics": cli_metrics,
+              "gt_envmap": cli_eval_gt, "white_light": cli_white, "relit": cli_relit}
+    times, stage = {}, ["setup"]
+    reset_launches()
+    fwd, bins = ForwardRecorder(keep=(21, 51)), BinningRecorder(stage)
+    composite_kernel.composite_forward, rasterize.bin_gaussians = fwd, bins
+    try:
+        with timed_stages(stages, times, stage):
+            cli_full_eval.main([f"--data_root={data_root}", f"--output={out}",
+                                f"--scenes={SCENE}", *overrides])
+            cli_white.main(common)
+            cli_relit.main(common + [f"--envmap={env_path}", f"--steps={RELIT_STEPS}"])
+    finally:
+        composite_kernel.composite_forward, rasterize.bin_gaussians = fwd.inner, bins.inner
+    launches = read_launches()
+    by_c = dict(fwd.calls)
+    if sum(by_c.values()) != launches["composite_forward"]:
+        raise AssertionError(f"eval: {launches['composite_forward']} B launches for {by_c} calls")
+    missing = [k for k, n in (("B at C = 13", by_c.get(13, 0)), ("B at C = 21", by_c.get(21, 0)),
+                              ("B at C = 51", by_c.get(51, 0)),
+                              ("C", launches["composite_backward"]),
+                              ("D", launches["segment_sum_rows"]),
+                              ("A", launches["expand_entries"]
+                               + launches["expand_entries_intervals"])) if n < 1]
+    if missing:
+        raise AssertionError(f"eval: no launch of {missing}")
+    overflow = collections.Counter()
+    for name, o in bins.out:
+        overflow[name] += int(o)
+    if any(n for name, n in overflow.items() if name != "train"):
+        raise AssertionError(f"eval: entry overflow in renders after training: {overflow}")
+
+    # Artifacts and metrics.
+    it = f"iteration_{EVAL_ITERS}"
+    trains = [f"view_{i:02d}" for i in range(1, TRAINER_VIEWS)]
+    for split, names in (("train", trains), ("test", ["view_00"])):
+        for aov in cli_render.AOV_DIRS:
+            ext = [".npy", ".jpg"] if aov.startswith("rendered_") else [".png"]
+            have = set(os.listdir(mp / split / it / aov))
+            if not {n + e for n in names for e in ext} <= have:
+                raise AssertionError(f"eval: {split}/{aov} lacks renders: {sorted(have)}")
+    results = json.loads((mp / "results.json").read_text())
+    if set(results) != {f"train/{it}", f"test/{it}"} or not all(
+            np.isfinite([r[k] for k in ("psnr", "ssim", "mse")]).all() and r["lpips"] is None
+            for r in results.values()):
+        raise AssertionError(f"eval: metrics {results}")
+    relit_lines = (mp / "relit_gt_envmaps" / it / "metrics.txt").read_text().splitlines()
+    gt_psnr = float(relit_lines[0].split("PSNR ")[1].split()[0])
+    best_angle = float(relit_lines[0].split("best_angle ")[1])
+    white = json.loads((mp / "white_light" / it / "results.json").read_text())
+    frames = sorted(os.listdir(mp / "relit_novel_view" / it))
+    halffit = [r["test_psnr_halffit"] for r in map(json.loads, open(mp / "train_log.jsonl"))
+               if "test_psnr_halffit" in r]
+    if not (np.isfinite(gt_psnr) and (mp / "relit_gt_envmaps" / it / "view_00.png").exists()
+            and np.isfinite([v["psnr"] for v in white.values()]).all() and white
+            and len([f for f in frames if f.startswith("frame_")]) == RELIT_STEPS
+            and len(halffit) == 1 and np.isfinite(halffit[0])):
+        raise AssertionError(f"eval: gt-envmap {relit_lines}, white light {white}, relit frames "
+                             f"{frames}, half-fit {halffit}")
+
+    rows, kernel_records = {}, {}
+    for C, label in ((21, "render: the first train view, 21 channels"),
+                     (51, "GT-envmap sweep: the first group of 17 angles, 51 channels")):
+        rows[C], kernel_records[C], _ = hold_forward(fwd.kept.pop(C), label)
+        kernel_records[C]["inputs"] = label
+    record = {"phase": "eval", "views": TRAINER_VIEWS, "test_views": ["view_00"],
+              "resolution": [RES, RES], "train_iterations": EVAL_ITERS,
+              "relit_steps": RELIT_STEPS, "overrides": overrides, "stage_s": times,
+              "launches": launches, "composite_forward_calls_by_channels": by_c,
+              "overflow_by_stage": dict(overflow), "metrics": results,
+              "gt_envmap_psnr": gt_psnr, "gt_envmap_best_angle": best_angle,
+              "white_light": white, "test_psnr_halffit": halffit[0],
+              "kernels": {f"composite_forward_c{C}": r for C, r in kernel_records.items()}}
+    return launches, by_c, rows, record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -1227,7 +1525,10 @@ def main() -> int:
         table, ref_img, record = kernels_phase(host, dev)
         report(record)
         report(stages_phase(host, dev))
-        serve_launches, record = serve_phase(host, cam0, ref_img, dev)
+        serve_launches, exact_frames, serve_record = serve_phase(host, cam0, ref_img, dev)
+        report(serve_record)
+        packed_launches, packed_row, record = serve_packed_phase(host, cam0, exact_frames,
+                                                                 serve_record, dev)
         report(record)
         report(reference_phase(dev))
 
@@ -1241,20 +1542,25 @@ def main() -> int:
     report(intervals_phase(host, dev))
     trainer_launches, iv_entry, trainer_table, record = trainer_phase(host, dev)
     report(record)
+    del host
+    eval_launches, by_c, eval_rows, record = eval_phase(dev)
+    report(record)
 
-    # Launches on each main path: serving (A, B at C = 3), the training step
-    # (A, B at C = 13, C, D) and the trainer with row intervals (A-int, B at
-    # C = 13, C, D).
-    paths = ("serve", "train", "trainer")
-    t, r = train_launches, trainer_launches
-    by_path = {
-        "expand_entries": (serve_launches[0], t["expand_entries"], r["expand_entries"]),
-        "expand_entries_intervals": (0, t["expand_entries_intervals"],
-                                     r["expand_entries_intervals"]),
-        "composite_forward": (serve_launches[1], 0, 0),
-        "composite_forward_c13": (0, t["composite_forward"], r["composite_forward"]),
-        "composite_backward": (0, t["composite_backward"], r["composite_backward"]),
-        "segment_sum_rows": (0, t["segment_sum_rows"], r["segment_sum_rows"])}
+    # Launches on each main path: serving (A, B at C = 3), packed serving (A,
+    # B'), the training step (A, B at C = 13, C, D), the trainer with row
+    # intervals (A-int, B at C = 13, C, D) and the evaluation chain (A or
+    # A-int, B at C = 13, 21 and 51, C, D).
+    paths = ("serve", "serve_packed", "train", "trainer", "eval")
+    v, q, t, r, e = serve_launches, packed_launches, train_launches, trainer_launches, eval_launches
+    by_path = {k: (v[k], q[k], t[k], r[k], e[k]) for k in KERNELS}
+    by_path["composite_forward"] = (v["composite_forward"], q["composite_forward"], 0, 0, 0)
+    by_path["composite_forward_c13"] = (0, 0, t["composite_forward"], r["composite_forward"],
+                                        by_c.get(13, 0))
+    by_path["composite_forward_c21"] = (0, 0, 0, 0, by_c.get(21, 0))
+    by_path["composite_forward_c51"] = (0, 0, 0, 0, by_c.get(51, 0))
+    if set(by_c) - {13, 21, 51} or q["composite_forward"] or t["composite_forward_packed"]:
+        raise AssertionError(f"unexpected compositor launches: eval {by_c}, packed serving "
+                             f"{q['composite_forward']}, train {t['composite_forward_packed']}")
     # B (C = 13), C and D: the numbers at the training step's shapes, and under
     # "at_trainer_shapes" those at the trainer's (A-int's row is the trainer's).
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
@@ -1262,7 +1568,12 @@ def main() -> int:
     for row, trow in zip(train_table, trainer_table):
         row["at_trainer_shapes"] = {k: trow[k] for k in ("max_abs_err", "ms", "plain_ms",
                                                          "bound_ms", "bound_by", "library_ms")}
-    table = table[:1] + [iv_entry] + table[1:] + train_table
+    b_rows = {C: dict(train_table[0], name=f"composite_forward_c{C}", **eval_rows[C])
+              for C in (21, 51)}
+    for row in b_rows.values():
+        row.pop("at_trainer_shapes")
+    table = (table[:1] + [iv_entry] + table[1:] + [packed_row, train_table[0], b_rows[21],
+                                                    b_rows[51]] + train_table[1:])
     for entry in table:
         counts = by_path[entry["name"]]
         entry["launches"] = sum(counts)

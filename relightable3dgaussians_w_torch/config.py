@@ -118,12 +118,10 @@ class RuntimeConfig:
     viewer_protocol: str = "sibr"     # "sibr" (stock SIBR remote viewer) or "json"
     serve_skip_alpha: float = 1.0 / 255.0  # viewer/serving LOD threshold
                                       # (RasterizerConfig.skip_alpha); 1/255 = exact
-    serve_packed_rgb: bool = False    # 12-bit packed R/B serving colors: not yet
-                                      # ported (rasterize raises)
+    serve_packed_rgb: bool = False    # viewer frames with 12-bit packed R/B
+                                      # (RasterizerConfig.packed_rgb, kernel B')
     eval_halffit_views: int = 2       # test views given a short left-half
-                                      # embedding fit at eval iterations; with
-                                      # test cameras, > 0 is not yet ported
-                                      # (queue 6)
+                                      # embedding fit at eval iterations
 
 
 @dataclass

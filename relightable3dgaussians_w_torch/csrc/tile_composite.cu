@@ -27,8 +27,25 @@
 // include = T * (1 - alpha) >= 1e-4; w = alpha * T; T_final is the product of the
 // included (1 - alpha); T_final * bg is added in the epilogue.
 //
-// Colors: C is a runtime argument (3 for serving, 13 or 21 in training); the
-// accumulators are a register array of a compile-time capacity >= C.
+// Colors: C is a runtime argument (3 for serving, 13 or 21 in training and
+// evaluation, 51 in the evaluation's fused 17-angle relighting sweep, up to
+// 64); the accumulators are a register array of a compile-time capacity >= C.
+// Above 32 channels a batch's staged rows pass the 48 KB default of shared
+// memory (256 x (7 + 51) x 4 = 59,392 bytes at C = 51), so the launch raises
+// the kernel's dynamic shared-memory limit first.
+//
+// Kernel B' (`r3dgw_composite_forward_packed`) is the same kernel on packed
+// serving rows: it replaces the `packed_rgb` branch of `_fwd_kernel`
+// (`pack_rb` / `_unpack_rb_rows`, tile_composite.py:45-69). An entry row is 8
+// floats: mean2d, conic, opacity, R and B quantized to 12 bits in one float
+// (q_r * 4096 + q_b), exact G. The thread that stages a row unpacks it with
+// the float ops of ops/composite.py `unpack_rb` (exact with FMA contraction
+// off), so B' gives the image and T_final that B gives on the dequantized
+// colors, bit for bit; the per-pair loop is B's. It is bound by operations
+// as B is (the unpack is 5 float ops per staged row, beside ~25 per visited
+// pair). Its row is 32 bytes instead of 36: the JAX package's reason for it,
+// halving a 16-row padded gather on the TPU, does not carry over, because the
+// port's entry rows carry no padding; it is the serving option kept as such.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,15 +58,17 @@ constexpr int kCoef = 7;                // q0 qx qy qxx qyy qxy opacity
 constexpr float kAlphaMin = (float)(1.0 / 255.0);
 constexpr float kAlphaSat = 0.99f;
 constexpr float kTEps = 1e-4f;
+// 8 / 4095 rounded once from double to float (ops/composite.py PACK_STEP).
+constexpr float kPackStep = (float)(8.0 / 4095.0);
 
-template <int MAXC>
+template <int MAXC, bool PACKED>
 __global__ void __launch_bounds__(kPixels) composite_fwd_kernel(
     const float* __restrict__ feat, int64_t n_rows, int C,
     const int64_t* __restrict__ tile_start, const int64_t* __restrict__ tile_end,
     const float* __restrict__ bg, int grid_x,
     float* __restrict__ out_rgb, float* __restrict__ out_tfin) {
   extern __shared__ float smem[];  // [kPixels][kCoef + C]
-  const int F = 6 + C;
+  const int F = PACKED ? 8 : 6 + C;
   const int S = kCoef + C;
   const int t = blockIdx.x;
   const int p = threadIdx.x;
@@ -87,7 +106,17 @@ __global__ void __launch_bounds__(kPixels) composite_fwd_kernel(
       s[4] = -0.5f * cc;
       s[5] = -cb;
       s[6] = row[5];
-      for (int c = 0; c < C; ++c) s[kCoef + c] = row[6 + c];
+      if (PACKED) {
+        // ops/composite.py unpack_rb, same ops
+        const float rb = row[6];
+        const float q_r = floorf(rb * (1.0f / 4096.0f));
+        const float q_b = rb - q_r * 4096.0f;
+        s[kCoef + 0] = q_r * kPackStep;
+        s[kCoef + 1] = row[7];
+        s[kCoef + 2] = q_b * kPackStep;
+      } else {
+        for (int c = 0; c < C; ++c) s[kCoef + c] = row[6 + c];
+      }
     }
     __syncthreads();
     const int nb = (end - b) < kPixels ? (int)(end - b) : kPixels;
@@ -120,12 +149,18 @@ __global__ void __launch_bounds__(kPixels) composite_fwd_kernel(
   out_tfin[o] = T;
 }
 
-template <int MAXC>
+template <int MAXC, bool PACKED = false>
 cudaError_t launch(const float* feat, int64_t n_rows, int C, const int64_t* ts,
                    const int64_t* te, const float* bg, int grid_x, int num_tiles,
                    float* out_rgb, float* out_tfin, cudaStream_t stream) {
   const size_t smem = (size_t)kPixels * (kCoef + C) * sizeof(float);
-  composite_fwd_kernel<MAXC><<<num_tiles, kPixels, smem, stream>>>(
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(composite_fwd_kernel<MAXC, PACKED>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  composite_fwd_kernel<MAXC, PACKED><<<num_tiles, kPixels, smem, stream>>>(
       feat, n_rows, C, ts, te, bg, grid_x, out_rgb, out_tfin);
   return cudaGetLastError();
 }
@@ -321,7 +356,7 @@ const char* r3dgw_error_string(int err) { return cudaGetErrorString((cudaError_t
 
 // feat [n_rows, 6 + C] f32, tile_start/tile_end [num_tiles] i64, bg [C] f32
 // -> out_rgb [num_tiles, 256, C] f32, out_tfin [num_tiles, 256] f32.
-// Returns cudaGetLastError() (cudaErrorInvalidValue for C outside 1..32).
+// Returns cudaGetLastError() (cudaErrorInvalidValue for C outside 1..64).
 int r3dgw_composite_forward(const void* feat, int64_t n_rows, int C, const void* tile_start,
                             const void* tile_end, const void* bg, int grid_x, int num_tiles,
                             void* out_rgb, void* out_tfin, void* stream) {
@@ -335,7 +370,19 @@ int r3dgw_composite_forward(const void* feat, int64_t n_rows, int C, const void*
   if (C >= 1 && C <= 4) return (int)launch<4>(f, n_rows, C, ts, te, b, grid_x, num_tiles, o, tf, s);
   if (C >= 1 && C <= 16) return (int)launch<16>(f, n_rows, C, ts, te, b, grid_x, num_tiles, o, tf, s);
   if (C >= 1 && C <= 32) return (int)launch<32>(f, n_rows, C, ts, te, b, grid_x, num_tiles, o, tf, s);
+  if (C >= 1 && C <= 64) return (int)launch<64>(f, n_rows, C, ts, te, b, grid_x, num_tiles, o, tf, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Kernel B': packed rows feat [n_rows, 8] f32 (mean2d, conic, opacity, packed
+// R|B, G), tile ranges as above, bg [3] f32 -> out_rgb [num_tiles, 256, 3] f32,
+// out_tfin [num_tiles, 256] f32. Returns cudaGetLastError().
+int r3dgw_composite_forward_packed(const void* feat, int64_t n_rows, const void* tile_start,
+                                   const void* tile_end, const void* bg, int grid_x,
+                                   int num_tiles, void* out_rgb, void* out_tfin, void* stream) {
+  return (int)launch<4, true>((const float*)feat, n_rows, 3, (const int64_t*)tile_start,
+                              (const int64_t*)tile_end, (const float*)bg, grid_x, num_tiles,
+                              (float*)out_rgb, (float*)out_tfin, (cudaStream_t)stream);
 }
 
 // feat [n_rows, 6 + C] f32, tile ranges [num_tiles] i64, g_tiles [num_tiles, 256, C]

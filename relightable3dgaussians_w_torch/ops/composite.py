@@ -23,6 +23,13 @@ The skip predicate power > 0 is a discontinuity of height ~opacity, so the
 kernel and this version compute power with the same scalar op order:
 `entry_quad_coeffs` then `power_separable`, every step an elementwise float32
 product or sum (the kernel is built with FMA contraction off).
+
+Packed serving colors (`pack_rb`, `unpack_rb`, `composite_forward_packed`): R
+and B are quantized to 12-bit fixed point and share one float32 column as
+q_r * 4096 + q_b (an integer below 2^24, exact in float32); G stays exact. The
+packed entry row is 8 floats: mean2d, conic, opacity, packed R|B, G. The
+packed kernel B' unpacks each row with the float ops of `unpack_rb`, so it
+composites what `composite_forward` composites on `unpack_rb(pack_rb(c))`.
 """
 
 from __future__ import annotations
@@ -33,6 +40,28 @@ import torch
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_SAT = 0.99
 T_EPS = 1e-4
+
+PACK_LIM = 8.0         # packed R and B are clamped to [0, PACK_LIM]
+PACK_LEVELS = 4095.0   # 12-bit levels
+# The dequantization step: the float32 rounding of the double 8/4095, which is
+# what the JAX package's weak-typed Python float becomes (not 8.0f / 4095.0f).
+PACK_STEP = float(np.float32(PACK_LIM / PACK_LEVELS))
+
+
+def pack_rb(colors: torch.Tensor):
+    """[N, 3] rgb -> ([N] packed R|B, [N] exact G), in the JAX package's op
+    order (`ops/pallas/tile_composite.py` `pack_rb`): clip to [0, 8], times
+    4095 / 8 = 511.875, round half to even, q_r * 4096 + q_b."""
+    q = torch.round(torch.clamp(colors[:, ::2], 0.0, PACK_LIM) * (PACK_LEVELS / PACK_LIM))
+    return q[:, 0] * 4096.0 + q[:, 1], colors[:, 1]
+
+
+def unpack_rb(rb: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Inverse of `pack_rb`: [N] packed R|B and [N] G -> [N, 3] rgb. The floor
+    and the remainder are exact on the packed integers."""
+    q_r = torch.floor(rb * (1.0 / 4096.0))
+    q_b = rb - q_r * 4096.0
+    return torch.stack([q_r * PACK_STEP, g, q_b * PACK_STEP], dim=-1)
 
 
 def entry_quad_coeffs(mxl, myl, ca, cb, cc):
@@ -137,6 +166,18 @@ def composite_forward(feat: torch.Tensor, tile_start: torch.Tensor, tile_end: to
         out_rgb[t0:t1] = color + T_fin[..., None] * bg
         out_tfin[t0:t1] = T_fin
     return out_rgb, out_tfin
+
+
+def composite_forward_packed(feat: torch.Tensor, tile_start: torch.Tensor,
+                             tile_end: torch.Tensor, bg: torch.Tensor, grid_x: int,
+                             grid_y: int, tile: int = 16, budget: int = 1 << 24):
+    """`composite_forward` of packed entry rows: feat [D, 8] (mean2d, conic,
+    opacity, packed R|B, G), each row unpacked once by `unpack_rb`; bg [3].
+    Returns (tiles_rgb [T, P, 3], tiles_tfin [T, P])."""
+    if feat.ndim != 2 or feat.shape[1] != 8:
+        raise ValueError(f"packed entry rows are [D, 8], got {list(feat.shape)}")
+    rows = torch.cat([feat[:, :6], unpack_rb(feat[:, 6], feat[:, 7])], dim=-1)
+    return composite_forward(rows, tile_start, tile_end, bg, grid_x, grid_y, tile, budget)
 
 
 def _transmittance(alpha):

@@ -7,9 +7,11 @@ are the hand-written CUDA kernels of `ops/cuda/`; on the CPU their plain
 PyTorch versions. Gradients flow with autograd: through preprocess to means,
 scales and quaternions, and through the gather (`ops/segment_sum.gather_rows`)
 and the compositor (`ops/cuda/tile_composite.composite_tiles`) to opacities,
-colors, bg and the optional `mean2d_probe`. The TPU layout knobs of the JAX
-config (Pallas chunking, segment alignment, tiles per grid step) have no meaning
-here and are dropped. Each stage runs inside a `torch.profiler` range
+colors, bg and the optional `mean2d_probe`. With `packed_rgb` (serving only)
+the colors go through the gather as 12-bit packed R|B plus exact G and the
+forward-only kernel B' composites them; a render that needs gradients raises.
+The TPU layout knobs of the JAX config (Pallas chunking, segment alignment,
+tiles per grid step) have no meaning here and are dropped. Each stage runs inside a `torch.profiler` range
 ("rasterize.preprocess", ".binning", ".gather", ".composite"), so a profile
 of any caller splits its time by stage.
 """
@@ -22,6 +24,7 @@ import torch
 
 from ..device import resolve_device
 from .binning import bin_gaussians
+from .composite import pack_rb
 from .cuda import tile_composite as _composite_kernel
 from .preprocess import preprocess, row_intervals
 from .segment_sum import gather_rows
@@ -41,8 +44,10 @@ class RasterizerConfig(NamedTuple):
     skip_alpha: float = 1.0 / 255.0  # rect tightening threshold; 1/255 = exact,
                                      # larger = serving LOD (fewer entries, each
                                      # dropped one < skip_alpha per pixel)
-    packed_rgb: bool = False         # 12-bit packed R/B serving colors: not yet
-                                     # ported
+    packed_rgb: bool = False         # serving only (3 channels, no gradient):
+                                     # R and B quantized to 12 bits in one
+                                     # entry column, G exact; per-channel
+                                     # error <= 8/4095/2 ~ 9.8e-4
 
     @property
     def grid_x(self) -> int:
@@ -103,8 +108,13 @@ def rasterize(means3d, scales, quats, opacities, colors, bg,
         aux: RasterizeAux
     """
     if cfg.packed_rgb:
-        raise ValueError("RasterizerConfig.packed_rgb is not yet ported to the torch package "
-                         "(ROADMAP queue 5)")
+        if colors.shape[-1] != 3:
+            raise ValueError(f"packed_rgb composites 3 color channels, got {colors.shape[-1]}")
+        if torch.is_grad_enabled() and any(
+                x is not None and x.requires_grad
+                for x in (means3d, scales, quats, opacities, colors, bg, mean2d_probe)):
+            raise ValueError("packed_rgb is a forward-only serving mode: render with "
+                             "packed_rgb=False to differentiate")
     dev = resolve_device(device)
     means3d, scales, quats, opacities, colors, bg = (
         x.to(dev, torch.float32) for x in (means3d, scales, quats, opacities, colors, bg))
@@ -127,14 +137,21 @@ def rasterize(means3d, scales, quats, opacities, colors, bg,
         binning = bin_gaussians(pre, cfg.grid_x, cfg.grid_y, cfg.max_dup, intervals)
     with stage("rasterize.gather"):
         mean2d = pre.mean2d if mean2d_probe is None else pre.mean2d + mean2d_probe.to(dev)
-        # Entry rows in sorted order: mean2d, conic, opacity, colors. Slots past
-        # the real entries carry id 0 and lie outside every tile range: no
-        # gradient.
-        feat_pack = torch.cat([mean2d, pre.conic, opacities[:, None], colors], dim=-1)
+        # Entry rows in sorted order: mean2d, conic, opacity, colors (packed:
+        # R|B, G). Slots past the real entries carry id 0 and lie outside every
+        # tile range: no gradient.
+        color_cols = [c[:, None] for c in pack_rb(colors)] if cfg.packed_rgb else [colors]
+        feat_pack = torch.cat([mean2d, pre.conic, opacities[:, None], *color_cols], dim=-1)
         feat = gather_rows(feat_pack, binning.gauss_id, binning.num_entries)
     with stage("rasterize.composite"):
-        tiles_rgb, tiles_tfin = _composite_kernel.composite_tiles(
-            feat, binning.tile_start, binning.tile_end, bg, cfg.grid_x, cfg.grid_y, cfg.tile)
+        if cfg.packed_rgb:
+            tiles_rgb, tiles_tfin = _composite_kernel.composite_forward_packed(
+                feat, binning.tile_start, binning.tile_end, bg, cfg.grid_x, cfg.grid_y,
+                cfg.tile)
+        else:
+            tiles_rgb, tiles_tfin = _composite_kernel.composite_tiles(
+                feat, binning.tile_start, binning.tile_end, bg, cfg.grid_x, cfg.grid_y,
+                cfg.tile)
         image, tfin = _assemble_image(tiles_rgb, tiles_tfin, cfg, colors.shape[-1])
     aux = RasterizeAux(
         radii=pre.radius,

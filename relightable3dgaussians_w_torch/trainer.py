@@ -139,10 +139,6 @@ class Relightable3DGWTrainer:
         t0 = time.perf_counter()
         info = load_scene_info(cfg.dataset.source_path, cfg.dataset.images, cfg.dataset.eval,
                                cfg.dataset.resolution, cfg.dataset.white_background)
-        if info.test_cameras and cfg.runtime.eval_halffit_views > 0:
-            raise ValueError("runtime.eval_halffit_views > 0 with test cameras needs "
-                             "evaluation.optimize_test_embeddings: not yet ported "
-                             "(ROADMAP queue 6); set runtime.eval_halffit_views=0")
         self.scene_info = info
         self.train_cameras = info.train_cameras
         self.test_cameras = info.test_cameras
@@ -403,13 +399,15 @@ class Relightable3DGWTrainer:
                       self.rcfg, self.bg_color, view["sky_t"], m.envlight_sh_degree,
                       m.sky_sh_degree, m.specular, m.fix_sky, debug=False, device=self.device)
 
-    @torch.no_grad()
     def evaluate_report(self, it: int, n_train_views: int = 5):
         """In-training evaluation: render a few train cameras and every test
         camera, log PSNR / L1, and write render|GT panels to
         <model_path>/panels/iteration_N/. Test cameras render with the mean
-        train embedding (their own embeddings are fitted by the evaluation
-        protocol, not ported yet)."""
+        train embedding ("test_psnr_mean_emb"); then up to
+        `runtime.eval_halffit_views` of them get a short left-half embedding
+        fit from the mean embedding (min(optim_embeddings_test_iters, 60)
+        steps) and their right-half masked PSNR is logged as
+        "test_psnr_halffit", the split the evaluation protocol scores."""
         emb = self.state.params["embeddings"]
         mean_emb = emb.mean(dim=0, keepdim=True)
         panel_dir = os.path.join(self.model_path, "panels", f"iteration_{it}")
@@ -422,7 +420,8 @@ class Relightable3DGWTrainer:
             psnrs, l1s = [], []
             for view in views:
                 cam = view["cam"]
-                out = self._render_view(view, mean_emb if use_mean else emb[cam.uid][None])
+                with torch.no_grad():
+                    out = self._render_view(view, mean_emb if use_mean else emb[cam.uid][None])
                 img = torch.clamp(out.render, 0, 1)
                 gt, occ = view["image_t"], view["occ_t"][..., None]
                 psnrs.append(float(LO.psnr(chw(img * occ), chw(gt * occ))))
@@ -437,6 +436,29 @@ class Relightable3DGWTrainer:
                 self.logger.scalars(it, rec)
                 print(f"[{it}] eval {split}: {name}={rec[name]:.2f} "
                       f"l1={rec[f'{split}_l1']:.4f} over {len(psnrs)} views")
+
+        k = self.cfg.runtime.eval_halffit_views
+        if test_views and k > 0:
+            from .evaluation import optimize_test_embeddings
+
+            sub = test_views[:k]
+            emb_t = optimize_test_embeddings(
+                self.state.params, self.state.gauss_state, self.mlp, sub, self.cfg, self.rcfg,
+                mean_emb.expand(len(sub), -1),
+                iters=min(self.cfg.optimizer.optim_embeddings_test_iters, 60),
+                device=self.device)
+            W2 = self.rcfg.width // 2
+            ps = []
+            for i, view in enumerate(sub):
+                with torch.no_grad():
+                    out = self._render_view(view, emb_t[i][None])
+                img = torch.clamp(out.render, 0, 1)[:, W2:]
+                gt, occ = view["image_t"][:, W2:], view["occ_t"][:, W2:, None]
+                ps.append(float(LO.psnr(chw(img * occ), chw(gt * occ))))
+            rec = {"test_psnr_halffit": float(np.mean(ps))}
+            self.logger.scalars(it, rec)
+            print(f"[{it}] eval test(half-fit {len(sub)} views): "
+                  f"psnr={rec['test_psnr_halffit']:.2f}")
 
     # --------------------------------------------------------------- checkpoints
 

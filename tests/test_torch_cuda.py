@@ -66,7 +66,7 @@ def test_expand_kernel_matches_plain(dev):
         assert torch.equal(keys, p_keys) and torch.equal(gid, p_gid)
 
 
-@pytest.mark.parametrize("channels", [3, 13])
+@pytest.mark.parametrize("channels", [3, 13, 51])
 def test_composite_kernel_matches_plain(dev, channels):
     pre, opa, colors, gx = _frame(dev, channels=channels)
     b = binning.bin_gaussians(pre, gx, gx, int(pre.tiles_touched.sum()) + 1024)
@@ -81,6 +81,43 @@ def test_composite_kernel_matches_plain(dev, channels):
     assert torch.isfinite(k_rgb).all()
     _image_close(k_rgb, p_rgb)
     _image_close(k_tfin, p_tfin)
+
+
+def test_packed_kernel_equals_kernel_on_dequantized_colors(dev):
+    """Kernel B' on packed rows equals kernel B on the dequantized colors, bit for
+    bit, and its plain version within the image tolerance."""
+    pre, opa, colors, gx = _frame(dev)
+    colors = colors * 3.0 - 0.5                      # past both ends of [0, 1]
+    b = binning.bin_gaussians(pre, gx, gx, int(pre.tiles_touched.sum()) + 1024)
+    rb, g = composite.pack_rb(colors)
+    head = torch.cat([pre.mean2d, pre.conic, opa[:, None]], -1)
+    packed = torch.cat([head, rb[:, None], g[:, None]], -1)[b.gauss_id.long()].contiguous()
+    exact = torch.cat([head, composite.unpack_rb(rb, g)], -1)[b.gauss_id.long()].contiguous()
+    bg = torch.tensor([0.1, 0.5, 0.9], device=dev)
+    before = composite_kernel.packed_launches
+    k_rgb, k_tfin = composite_kernel.composite_forward_packed(packed, b.tile_start, b.tile_end,
+                                                              bg, gx, gx)
+    torch.cuda.synchronize()
+    assert composite_kernel.packed_launches == before + 1
+    e_rgb, e_tfin = composite_kernel.composite_forward(exact, b.tile_start, b.tile_end, bg, gx, gx)
+    assert torch.equal(k_rgb, e_rgb) and torch.equal(k_tfin, e_tfin)
+    p_rgb, p_tfin = composite.composite_forward_packed(packed, b.tile_start, b.tile_end, bg, gx, gx)
+    _image_close(k_rgb, p_rgb)
+    _image_close(k_tfin, p_tfin)
+
+
+def test_channel_limits_raise(dev):
+    """The forward kernel takes up to 64 channels and the backward up to 32; past
+    them the wrappers raise ValueError instead of launching."""
+    ts = torch.zeros(4, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="1..64"):
+        composite_kernel.composite_forward(torch.zeros(8, 6 + 65, device=dev), ts, ts,
+                                           torch.zeros(65, device=dev), 2, 2)
+    feat = torch.zeros(8, 6 + 33, device=dev)
+    tiles, tfin = torch.zeros(4, 256, 33, device=dev), torch.zeros(4, 256, device=dev)
+    with pytest.raises(ValueError, match="1..32"):
+        composite_kernel.composite_backward(feat, ts, ts, torch.zeros(33, device=dev), tiles,
+                                            tfin, tiles, tfin, 2, 2)
 
 
 def test_wrappers_reject_bad_inputs(dev):

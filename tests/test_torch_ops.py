@@ -188,15 +188,18 @@ def test_rasterize_matches_jax_pallas_interpret():
 
 @pytest.mark.parametrize("field", ["packed_rgb", "row_intervals"])
 def test_unported_options_raise(field):
-    """packed_rgb (a serving option) is not ported yet and raises;
-    row_intervals is ported and renders what the rects render, from no more
-    entries."""
+    """Both options are ported. packed_rgb (a serving option) renders what the
+    exact path renders on the dequantized colors, bit for bit; row_intervals
+    renders what the rects render, from no more entries."""
     arrs, cam, cfg, _ = make_scene(n=20, seed=0)
     rcfg = torch_rcfg(cfg)._replace(**{field: True})
     args = [to_t(arrs[k]) for k in ("means3d", "scales", "quats", "opacities", "colors", "bg")]
     if field == "packed_rgb":
-        with pytest.raises(ValueError, match="not yet ported"):
-            rasterize.rasterize(*args, torch_cam(cam), rcfg, device="cpu")
+        img, _ = rasterize.rasterize(*args, torch_cam(cam), rcfg, device="cpu")
+        deq = composite.unpack_rb(*composite.pack_rb(args[4]))
+        ref, _ = rasterize.rasterize(*args[:4], deq, args[5], torch_cam(cam), torch_rcfg(cfg),
+                                     device="cpu")
+        assert torch.equal(img, ref)
         return
     img, aux = rasterize.rasterize(*args, torch_cam(cam), rcfg, device="cpu")
     ref, ref_aux = rasterize.rasterize(*args, torch_cam(cam), torch_rcfg(cfg), device="cpu")

@@ -11,6 +11,7 @@ is built once per module (no training steps). Float results are held to 1e-5
 everything copied rather than computed, must be equal.
 """
 
+import dataclasses
 import json
 import os
 import shutil
@@ -27,7 +28,9 @@ import torch
 
 from relightable3dgaussians_w_tpu import config as jconfig
 from relightable3dgaussians_w_tpu import train_step as JTS
+from relightable3dgaussians_w_tpu import renderer as jrenderer
 from relightable3dgaussians_w_tpu import trainer as jtrainer
+from relightable3dgaussians_w_tpu.data.cameras import Camera as JCamera
 from relightable3dgaussians_w_tpu.models import gaussians as jG
 from relightable3dgaussians_w_tpu.renderer import render as jrender
 
@@ -40,6 +43,7 @@ from test_torch_ops import assert_image_close, to_t
 from test_trainer_e2e import make_dataset
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+JRENDER_STATIC = ("envlight_sh_degree", "sky_sh_degree", "specular", "fix_sky", "debug")
 
 
 def _np(x):
@@ -106,7 +110,12 @@ def test_config_matches_jax_and_rejects_unported(scene, tmp_path):
                             f"dataset.model_path={scene['root'] / 'x'}"])
 
 
-def test_eval_halffit_with_test_cameras_is_rejected(tmp_path, scene):
+def test_eval_halffit_with_test_cameras_is_rejected(tmp_path, scene, monkeypatch):
+    """With test cameras (dataset.eval=true) the port's evaluation report runs
+    the half-fit: the mean embedding fitted on the left half of up to
+    runtime.eval_halffit_views test views, the right-half masked PSNR logged as
+    test_psnr_halffit. From the JAX trainer's state and the same test view, it
+    equals the JAX trainer's within 1e-3 dB (3 fit steps here)."""
     data = str(tmp_path / "scene")
     shutil.copytree(scene["data"], data)
     with open(os.path.join(data, "transforms_train.json")) as f:
@@ -115,11 +124,30 @@ def test_eval_halffit_with_test_cameras_is_rejected(tmp_path, scene):
         json.dump(dict(meta, frames=meta["frames"][:1]), f)
     cfg = _cfg(data, str(tmp_path / "out"))
     cfg.dataset.eval = True
-    with pytest.raises(ValueError, match="queue 6"):
-        trainer.Relightable3DGWTrainer(cfg, device="cpu")
-    cfg.runtime.eval_halffit_views = 0
+    cfg.optimizer.optim_embeddings_test_iters = 3
     tr = trainer.Relightable3DGWTrainer(cfg, device="cpu")
-    assert len(tr.test_cameras) == 1
+    assert len(tr.test_cameras) == 1 and cfg.runtime.eval_halffit_views == 2
+    jtr = scene["jtr"]
+    tr.state = _port_state(jtr.state)
+    tr.rcfg = tr.rcfg._replace(max_dup=jtr.rcfg.max_dup, row_intervals=jtr.rcfg.row_intervals)
+    tr.evaluate_report(7)
+
+    cam = tr.test_cameras[0]
+    fields = {f.name: getattr(cam, f.name) for f in dataclasses.fields(cam) if f.init}
+    monkeypatch.setattr(jtr, "test_cameras", [JCamera(**fields)])
+    monkeypatch.setattr(jtr.cfg.optimizer, "optim_embeddings_test_iters", 3)
+    # JAX's report renders eagerly op by op; one jitted render compiles once.
+    monkeypatch.setattr(jrenderer, "render", jax.jit(jrenderer.render, static_argnums=(5,),
+                                                     static_argnames=JRENDER_STATIC))
+    jtr.evaluate_report(7)
+
+    def halffit(path):
+        recs = [json.loads(line) for line in open(path)]
+        return [r["test_psnr_halffit"] for r in recs if "test_psnr_halffit" in r]
+
+    got, want = halffit(tr.log_path), halffit(jtr.log_path)
+    assert len(got) == 1 and np.isfinite(got[0])
+    assert abs(got[0] - want[-1]) < 1e-3, (got, want)
 
 
 # ------------------------------------------------------------------ density control
