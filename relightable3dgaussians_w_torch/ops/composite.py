@@ -22,7 +22,8 @@ Each entry's gradient row is written to its own slot: no atomics.
 The skip predicate power > 0 is a discontinuity of height ~opacity, so the
 kernel and this version compute power with the same scalar op order:
 `entry_quad_coeffs` then `power_separable`, every step an elementwise float32
-product or sum (the kernel is built with FMA contraction off).
+product or sum (the kernel rounds each of them on its own: `__fmul_rn`,
+`__fadd_rn`, `__fsub_rn`, no FMA).
 
 Packed serving colors (`pack_rb`, `unpack_rb`, `composite_forward_packed`): R
 and B are quantized to 12-bit fixed point and share one float32 column as

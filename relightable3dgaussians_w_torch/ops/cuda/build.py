@@ -28,9 +28,11 @@ COMMON_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # name -> (source file, extra nvcc flags)
 KERNELS = {
     "expand": ("expand.cu", []),
-    # FMA contraction off: the compositor's power chain must round every product
-    # and sum as the plain version does (ops/composite.py).
-    "tile_composite": ("tile_composite.cu", ["--fmad=false"]),
+    # FMA contraction stays on: the compositor writes its predicate chain (power,
+    # alpha, T * (1 - alpha), the packed unpack) with __fmul_rn / __fadd_rn, so
+    # those round as the plain version does (ops/composite.py), and lets the
+    # blend and the gradient terms contract.
+    "tile_composite": ("tile_composite.cu", []),
     "segment_sum": ("segment_sum.cu", []),
 }
 

@@ -36,7 +36,13 @@ _I64 = ctypes.c_int64
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    lib = build.load("tile_composite")
+    return bind(build.load("tile_composite"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a loaded build of `csrc/tile_composite.cu`."""
+    lib.r3dgw_error_string.argtypes = [_I]
+    lib.r3dgw_error_string.restype = ctypes.c_char_p
     lib.r3dgw_composite_forward.argtypes = [_P, _I64, _I, _P, _P, _P, _I, _I, _P, _P, _P]
     lib.r3dgw_composite_forward.restype = ctypes.c_int
     lib.r3dgw_composite_forward_packed.argtypes = [_P, _I64, _P, _P, _P, _I, _I, _P, _P, _P]

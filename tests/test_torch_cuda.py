@@ -35,10 +35,10 @@ def _image_close(got, want):
     assert float(err.median()) < 1e-5
 
 
-def _frame(dev, n=20_000, res=256, channels=3):
+def _frame(dev, n=20_000, res=256, channels=3, min_opacity=0.0):
     p, s = synthetic.synthetic_scene(n=n, n_sky=n // 10, device=dev)
     cam = synthetic.camera(res, res, device=dev)
-    opa = G.get_opacity(p, s)[:, 0]
+    opa = torch.clamp_min(G.get_opacity(p, s)[:, 0], min_opacity)
     pre = preprocess.preprocess(G.get_xyz(p, s), G.get_scaling(p), G.get_rotation(p),
                                 cam.viewmat, cam.projmat, cam.tan_fovx, cam.tan_fovy,
                                 res, res, 16, active=s.alive, opacities=opa)
@@ -66,18 +66,23 @@ def test_expand_kernel_matches_plain(dev):
         assert torch.equal(keys, p_keys) and torch.equal(gid, p_gid)
 
 
-@pytest.mark.parametrize("channels", [3, 13, 51])
-def test_composite_kernel_matches_plain(dev, channels):
-    pre, opa, colors, gx = _frame(dev, channels=channels)
+def _frame_rows(dev, channels, min_opacity=0.0):
+    """A frame's sorted entry rows: (feat, tile_start, tile_end, grid_x, grid_y)."""
+    pre, opa, colors, gx = _frame(dev, channels=channels, min_opacity=min_opacity)
     b = binning.bin_gaussians(pre, gx, gx, int(pre.tiles_touched.sum()) + 1024)
     feat = torch.cat([pre.mean2d, pre.conic, opa[:, None], colors], -1)[b.gauss_id.long()]
+    return feat.contiguous(), b.tile_start, b.tile_end, gx, gx
+
+
+@pytest.mark.parametrize("channels", [3, 13, 21, 51])
+def test_composite_kernel_matches_plain(dev, channels):
+    feat, ts, te, gx, gy = _frame_rows(dev, channels)
     bg = torch.linspace(0.1, 0.9, channels, device=dev)
     before = composite_kernel.launches
-    k_rgb, k_tfin = composite_kernel.composite_forward(feat.contiguous(), b.tile_start,
-                                                       b.tile_end, bg, gx, gx)
+    k_rgb, k_tfin = composite_kernel.composite_forward(feat, ts, te, bg, gx, gy)
     torch.cuda.synchronize()
     assert composite_kernel.launches == before + 1
-    p_rgb, p_tfin = composite.composite_forward(feat, b.tile_start, b.tile_end, bg, gx, gx)
+    p_rgb, p_tfin = composite.composite_forward(feat, ts, te, bg, gx, gy)
     assert torch.isfinite(k_rgb).all()
     _image_close(k_rgb, p_rgb)
     _image_close(k_tfin, p_tfin)
@@ -145,33 +150,106 @@ def _rel(got, want):
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
 
 
-@pytest.mark.parametrize("channels", [3, 13])
-def test_composite_backward_kernel_matches_plain(dev, channels):
-    """Kernel C against the plain backward, per gradient group (the JAX
-    package's kernel tolerance), and bitwise equal over two launches."""
-    pre, opa, colors, gx = _frame(dev, channels=channels)
-    b = binning.bin_gaussians(pre, gx, gx, int(pre.tiles_touched.sum()) + 1024)
-    feat = torch.cat([pre.mean2d, pre.conic, opa[:, None], colors], -1)[b.gauss_id.long()]
-    feat = feat.contiguous()
-    bg = torch.linspace(0.1, 0.9, channels, device=dev)
-    rgb, tfin = composite_kernel.composite_forward(feat, b.tile_start, b.tile_end, bg, gx, gx)
-    gen = torch.Generator(device=dev).manual_seed(channels)
-    g_rgb = torch.randn(rgb.shape, generator=gen, device=dev)
-    g_tfin = torch.randn(tfin.shape, generator=gen, device=dev)
-    args = (feat, b.tile_start, b.tile_end, bg, rgb, tfin, g_rgb, g_tfin, gx, gx)
+def _hand_made_rows(dev, channels):
+    """Three 16x16 tiles of made-up entry rows: (feat, tile_start, tile_end, 3, 1).
+
+    Tile 0 holds 600 faint entries near its left edge: more than two staging
+    batches of either kernel (256 rows in the forward, 64 in the backward),
+    with a ragged tail; its left pixels terminate at different depths, its
+    right ones not at all. Tile 1
+    is empty. Tile 2 holds 300 entries whose first three cover the tile at
+    opacity 0.99, so every pixel terminates within the first batch and the
+    later entries are never reached."""
+    rng = np.random.RandomState(channels)
+    counts = (600, 0, 300)
+
+    def rows(n, x, sigma, opacity):
+        mean = np.stack([rng.uniform(*x, n), rng.uniform(-4, 20, n)], -1)
+        s = rng.uniform(*sigma, (n, 2))
+        rho = rng.uniform(-0.5, 0.5, n)
+        det = (1 - rho ** 2) * (s[:, 0] * s[:, 1]) ** 2
+        conic = np.stack([s[:, 1] ** 2, -rho * s[:, 0] * s[:, 1], s[:, 0] ** 2], -1) / det[:, None]
+        return np.concatenate([mean, conic, opacity[:, None],
+                               rng.uniform(0, 1, (n, channels))], -1)
+
+    t2 = rows(counts[2], (28, 52), (3, 10), rng.uniform(0.05, 0.6, counts[2]))
+    t2[:3, :2], t2[:3, 2:5], t2[:3, 5] = (40, 8), (1e-4, 0, 1e-4), 0.99
+    t0 = rows(counts[0], (-6, 4), (3, 8), rng.uniform(0.004, 0.08, counts[0]))
+    feat = np.concatenate([t0, t2]).astype(np.float32)
+    ends = np.cumsum(counts)
+    as_dev = lambda a: torch.as_tensor(a, device=dev)
+    return as_dev(feat), as_dev(ends - counts), as_dev(ends), 3, 1
+
+
+def _backward_cotangents(rgb, tfin, seed):
+    gen = torch.Generator(device=rgb.device).manual_seed(seed)
+    return (torch.randn(rgb.shape, generator=gen, device=rgb.device),
+            torch.randn(tfin.shape, generator=gen, device=rgb.device))
+
+
+def _hold_backward(feat, ts, te, gx, gy, seed):
+    """Kernel C against the plain backward on one set of entry rows: per
+    gradient group (the JAX package's kernel tolerance), bitwise equal over two
+    launches, and zero on exactly the rows the plain version leaves zero.
+    Returns (kernel d_feat, plain d_feat, final transmittance)."""
+    C = feat.shape[1] - 6
+    bg = torch.linspace(0.1, 0.9, C, device=feat.device)
+    rgb, tfin = composite_kernel.composite_forward(feat, ts, te, bg, gx, gy)
+    g_rgb, g_tfin = _backward_cotangents(rgb, tfin, seed)
+    args = (feat, ts, te, bg, rgb, tfin, g_rgb, g_tfin, gx, gy)
     before = composite_kernel.backward_launches
     d_k, dbg_k = composite_kernel.composite_backward(*args)
     d_k2, _ = composite_kernel.composite_backward(*args)
     torch.cuda.synchronize()
     assert composite_kernel.backward_launches == before + 2
     assert torch.equal(d_k, d_k2)
-    d_p, dbg_p = composite.composite_backward(feat, b.tile_start, b.tile_end, bg, gx, gx,
-                                              g_rgb, g_tfin)
+    d_p, dbg_p = composite.composite_backward(feat, ts, te, bg, gx, gy, g_rgb, g_tfin)
     assert torch.isfinite(d_k).all()
     for name, cols in (("mean2d", slice(0, 2)), ("conic", slice(2, 5)),
                        ("opacity", slice(5, 6)), ("colors", slice(6, None))):
         assert _rel(d_k[:, cols], d_p[:, cols]) < 5e-3, name
     assert _rel(dbg_k, dbg_p) < 1e-5
+    assert torch.equal((d_k == 0).all(1), (d_p == 0).all(1))
+    return d_k, d_p, tfin
+
+
+@pytest.mark.parametrize("channels", [3, 13, 21])
+def test_composite_backward_kernel_matches_plain(dev, channels):
+    """Kernel C against the plain backward on a frame (`_hold_backward`)."""
+    _hold_backward(*_frame_rows(dev, channels), seed=channels)
+
+
+@pytest.mark.parametrize("channels", [3, 13, 21])
+def test_composite_backward_zero_rows_match_plain(dev, channels):
+    """Where the plain backward leaves an entry row exactly zero (no pixel
+    blends it: all its pairs skipped, or every pixel terminated before it),
+    kernel C's row is exactly zero too, and nowhere else: a predicate moved by
+    FMA contraction or by the staging would show here. Opacities of at least
+    0.9 make most pixels terminate, so both kinds of zero rows are common."""
+    feat, ts, te, gx, gy = _frame_rows(dev, channels, min_opacity=0.9)
+    d_k, d_p, tfin = _hold_backward(feat, ts, te, gx, gy, seed=100 + channels)
+    assert 0 < int((d_p == 0).all(1).sum()) < feat.shape[0]
+    assert float((tfin < 1e-3).double().mean()) > 0.5
+
+
+@pytest.mark.parametrize("channels", [3, 13, 21, 51])
+def test_composite_kernels_on_hand_made_tiles(dev, channels):
+    """B against its plain version on `_hand_made_rows` (more than two staging
+    batches with a ragged tail, an empty tile, a tile whose pixels all
+    terminate in the first batch); C too, up to its 32 channels."""
+    feat, ts, te, gx, gy = _hand_made_rows(dev, channels)
+    bg = torch.linspace(0.1, 0.9, channels, device=dev)
+    k_rgb, k_tfin = composite_kernel.composite_forward(feat, ts, te, bg, gx, gy)
+    p_rgb, p_tfin = composite.composite_forward(feat, ts, te, bg, gx, gy)
+    torch.cuda.synchronize()
+    _image_close(k_rgb, p_rgb)
+    _image_close(k_tfin, p_tfin)
+    assert torch.equal(k_rgb[1], bg.expand(256, channels)) and bool((k_tfin[1] == 1).all())
+    assert bool((k_tfin[2] < 0.02).all()) and 0 < int((k_tfin[0] < 1e-3).sum()) < 256
+    if channels <= composite_kernel.MAX_BACKWARD_CHANNELS:
+        d_k = _hold_backward(feat, ts, te, gx, gy, seed=200 + channels)[0]
+        assert not bool(d_k[600:900].any(1)[64:].any())   # never reached
+        assert bool(d_k[:600].any(1)[512:].any())         # the ragged tail's rows
 
 
 def test_segment_sum_kernel_matches_plain(dev):
@@ -300,3 +378,7 @@ def test_interval_render_matches_rect_render(dev):
     assert float((out[True][1] - out[False][1]).abs().max()) <= 2e-6
     for g0, g1 in zip(out[False][2], out[True][2]):
         assert float((g1 - g0).abs().max()) <= 5e-4 * float(g0.abs().max())
+    # The entries intervals drop are skipped by every pixel, so on the card the
+    # render and the gradients are the same bits.
+    assert torch.equal(out[True][0], out[False][0]) and torch.equal(out[True][1], out[False][1])
+    assert all(torch.equal(g0, g1) for g0, g1 in zip(out[False][2], out[True][2]))

@@ -239,14 +239,14 @@ def test_entry_points_run_on_cuda_by_default():
 
 
 def test_import_hygiene():
-    """Every module of the port, and chip_smoke, import no JAX, flax or JAX
-    package module, and import without nvcc or a GPU."""
+    """Every module of the port, chip_smoke and compositor_ab import no JAX,
+    flax or JAX package module, and import without nvcc or a GPU."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import relightable3dgaussians_w_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, compositor_ab\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0].startswith(('jax', 'flax'))\n"
         "             or k.startswith('relightable3dgaussians_w_tpu'))\n"
         "assert not bad, bad\n"
