@@ -11,12 +11,16 @@ Gaussians, random MLP weights from a seed), then:
 2. kernels: on the first frame's inputs, each kernel against its plain PyTorch
             version (expansion bitwise; compositor within the image tolerance:
             under 0.1% of pixels off by more than 1e-3, median error under
-            1e-5), with median times over repeated launches (CUDA events) and
-            each kernel's lower bound from the bytes and float32 operations
-            this frame needs (H100 SXM: 3.35 TB/s, 67 TFLOP/s float32; the
-            compositor's operations counted per (pixel, entry) pair the walk
-            visits: the full cost where the entry contributes, the power test,
-            or the power and alpha tests, where it is skipped);
+            1e-5), with median times over repeated launches (CUDA events
+            around each call; for the short expansion and segment-sum
+            kernels the device time of their kernels from torch.profiler,
+            which leaves out the wrapper's host time, with the event time
+            beside it) and each kernel's lower bound from the bytes and
+            float32 operations this frame needs (H100 SXM: 3.35 TB/s, 67
+            TFLOP/s float32; the compositor's operations counted per (pixel,
+            entry) pair the walk visits: the full cost where the entry
+            contributes, the power test, or the power and alpha tests, where
+            it is skipped);
 3. stages:  the frame's stages timed one by one with CUDA events;
 4. serve:   frames through the port's ViewerServer (json protocol on
             127.0.0.1) sweeping yaw over -10..10 degrees, each checked for its
@@ -25,19 +29,23 @@ Gaussians, random MLP weights from a seed), then:
             PyTorch path on the CPU;
 6. train_kernels: on the first training step's inputs (13 fused channels,
             taken from the autograd graph of `train_step.forward_loss`: the
-            compositor's saved inputs and outputs and the cotangents that reach
-            the compositor and the gather), the compositor forward at C = 13,
-            the compositor backward and the gather transpose (segment sum)
-            against their plain versions (the backward per gradient group
-            within max |delta| / max |ref| < 5e-3 and zero on exactly the
-            entry rows the plain version leaves zero, the segment sum within
-            1e-5 of index_add_), both bitwise equal over two launches, with
-            times and bounds as in phase 2;
+            compositor's saved inputs and outputs, the cotangents that reach
+            the compositor and the gather, and the gather's segment layout),
+            the rect expansion the step's binning makes (bitwise), the
+            compositor forward at C = 13, the compositor backward and the
+            gather transpose (segment sum) against their plain versions (the
+            backward per gradient group within max |delta| / max |ref| < 5e-3
+            and zero on exactly the entry rows the plain version leaves zero,
+            the segment sum within 1e-5 of index_add_ on both of its routes:
+            the binning's layout, timed with the binning's permutation kernel
+            P that builds it, and the general entry that sorts the ids; P
+            bitwise), all bitwise equal over two launches, with times and
+            bounds as in phase 2;
 7. train:   6 training steps through `train_step` at full width (target: the
             port's own render of the scene under embedding 1; sky and occluder
             masks all ones), each checked for a finite loss, zero overflow,
             finite parameters, a nonzero densification statistic on visible
-            rows and launches of all four kernels; ms per step (median of steps
+            rows and launches of all five kernels; ms per step (median of steps
             2-6), the peak device memory, and from a profiled window of 3 more
             steps the stage breakdown (the port's own profiler ranges) and the
             device idle share; then, from the starting state, 6 steps that all
@@ -54,10 +62,10 @@ Gaussians, random MLP weights from a seed), then:
             defaults plus runtime.row_intervals=true for 60 iterations (densify
             rounds of both variants, opacity resets, evaluation and save at
             the end): every step's loss finite, every binning overflow healed
-            with only its own step rejected, launches of A-int, B, C and D, a
+            with only its own step rejected, launches of A-int, B, C, P and D, a
             densify round that selects, the checkpoint in the reference
             layout; then on the trained state (pool headroom 8) and view 0,
-            kernels A-int (bitwise), B, C and D against their plain versions
+            kernels A-int (bitwise), B, C, P and D against their plain versions
             on the inputs the trainer's step gives them, the full-state and
             PLY reloads rendering view 0 as the trained state does, and steps
             with row intervals on and off (times and profiled stages); init,
@@ -80,9 +88,9 @@ Gaussians, random MLP weights from a seed), then:
             `cli.relit_novel_view.main --steps=RELIT_STEPS` on its checkpoint:
             every artifact present, every metric finite, no entry overflow in
             any render after training, launches of B at 13, 21 and 51
-            channels and of C and D; B at C = 21 (the first render) and C = 51
-            (the sweep's first group) against its plain version with times and
-            bounds; wall seconds of each stage.
+            channels and of C, P and D; B at C = 21 (the first render) and C =
+            51 (the sweep's first group) against its plain version with times
+            and bounds; wall seconds of each stage.
 
 Depth cuts: the trainer phase runs 60 of the default 40,000 iterations, the
 eval phase EVAL_ITERS = 30 and RELIT_STEPS = 8 of the relighting CLI's 30
@@ -222,6 +230,21 @@ def median_ms(fn, iters):
     return float(np.median(times))
 
 
+def device_ms(fn, iters):
+    """Device time per call of `fn`: the kernels, copies and sets its `iters`
+    calls put on the card (torch.profiler, CUPTI), summed, over iters. Unlike
+    `median_ms` it leaves out the host time a call spends before its first
+    launch, which an event pair around one short call includes."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in device_events(prof)) / 1e3 / iters
+
+
 def image_errors(got, want):
     err = (got.double() - want.double()).abs().flatten()
     return float(err.max()), float((err > 1e-3).double().mean()), float(err.median())
@@ -337,20 +360,9 @@ def kernels_phase(host, dev):
                                 cam.tan_fovy, RES, RES, 16, active=host.state.gauss_state.alive,
                                 opacities=opa, skip_alpha=rcfg.skip_alpha)
     n = xyz.shape[0]
-    args = expand_args(pre, pre.tiles_touched, gx, rcfg.max_dup)
-    counts = args[0]
-
-    keys_k, gid_k = expand_kernel.expand_entries(*args)
-    keys_p, gid_p = binning.expand_entries_plain(*args)
-    torch.cuda.synchronize()
-    if not (torch.equal(keys_k, keys_p) and torch.equal(gid_k, gid_p)):
-        raise AssertionError("expand_entries kernel differs from its plain version")
-    a_err = 0.0  # bitwise equal
-    total = int(counts.sum())
-    a_ms = median_ms(lambda: expand_kernel.expand_entries(*args), 20)
-    a_plain_ms = median_ms(lambda: binning.expand_entries_plain(*args), 10)
-    a_bound = bound(expand_bytes(counts, rcfg.max_dup),
-                    EXPAND_OPS_PER_SLOT * min(total, rcfg.max_dup))
+    a_row, a_rec = hold_expansion((expand_args(pre, pre.tiles_touched, gx, rcfg.max_dup), {}),
+                                  "serving frame")
+    total = a_rec["entries"]
 
     b = binning.bin_gaussians(pre, gx, gy, rcfg.max_dup)
     if int(b.overflow) != 0:
@@ -364,14 +376,9 @@ def kernels_phase(host, dev):
     record = {"phase": "kernels", "frame": "yaw -10, embedding 0, 800x800",
           "gaussians": n, "entries": total, "max_dup": rcfg.max_dup,
           "pairs": b_rec["pairs"],
-          "expand": {"keys_ids_bitwise_equal": True, "ms": a_ms, "plain_ms": a_plain_ms},
-          "composite": b_rec}
+          "expand": a_rec, "composite": b_rec}
     table = [
-        dict(name="expand_entries", route="cuda",
-             source="relightable3dgaussians_w_torch/csrc/expand.cu",
-             replaces="relightable3dgaussians_w_tpu/ops/pallas/expand.py:58",
-             max_abs_err=float(a_err), ms=a_ms, plain_ms=a_plain_ms, bound_ms=a_bound[0],
-             bound_by=a_bound[1], library_ms=None),
+        a_row,
         dict(name="composite_forward", route="cuda",
              source="relightable3dgaussians_w_torch/csrc/tile_composite.cu",
              replaces="relightable3dgaussians_w_tpu/ops/pallas/tile_composite.py:193", **b_row),
@@ -510,7 +517,7 @@ def serve_phase(host, cam0, ref_img, dev):
     result, per_frame = serve_frames(host, cam0, dev)
     launches = read_launches()
     for i, f in enumerate(per_frame):
-        if f["expand_entries"] < 1 or f["composite_forward"] < 1:
+        if f["expand_entries"] < 1 or f["permute_entries"] < 1 or f["composite_forward"] < 1:
             raise AssertionError(f"frame {i}: kernel launches {f}")
     # The first request is the kernel phase's frame: same bytes up to a
     # truncation at a float boundary.
@@ -546,7 +553,7 @@ def serve_packed_phase(host, cam0, exact, exact_record, dev):
     off_by_one, max_diff = [], 0
     for i, (f, (_, buf), (_, ebuf)) in enumerate(zip(per_frame, result, exact)):
         if f["composite_forward_packed"] < 1 or f["composite_forward"] != 0 \
-                or f["expand_entries"] < 1:
+                or f["expand_entries"] < 1 or f["permute_entries"] < 1:
             raise AssertionError(f"packed frame {i}: kernel launches {f}")
         diff = np.abs(np.frombuffer(buf, np.uint8).astype(int) - np.frombuffer(ebuf, np.uint8))
         if diff.max() > 1:
@@ -679,7 +686,8 @@ def step_inputs(state, cam, gt, sky, occ, uid, mlp, cfg, rcfg, bg, dev):
     """The kernels' inputs on one training step of `state`, read from the port's
     own `forward_loss`: the expansion's arguments as the binning passes them,
     and from the autograd graph the compositor's saved inputs and outputs, the
-    cotangents that reach it and the gather, and the gather's ids."""
+    cotangents that reach it and the gather, and the gather's segment layout
+    (the binning's `seg_bounds` and `slot_pos`) with the entry ids it stands for."""
     draws = TS.make_draws(torch.Generator(device=dev).manual_seed(0), mlp, cfg)
     params = TS.tree_map(lambda p: p.detach().requires_grad_(True), state.params)
     n = state.gauss_state.alive.shape[0]
@@ -701,7 +709,7 @@ def step_inputs(state, cam, gt, sky, occ, uid, mlp, cfg, rcfg, bg, dev):
     comp = autograd_node(loss.grad_fn, "_CompositeTilesBackward")
     gather = autograd_node(loss.grad_fn, "_GatherRowsBackward")
     feat, tile_start, tile_end, bg, rgb, tfin = (t.detach() for t in comp.saved_tensors)
-    gid, num_valid = gather.saved_tensors
+    bounds, order = gather.saved_tensors
     got = {}
     comp.register_prehook(lambda g: got.update(g_rgb=g[0], g_tfin=g[1]))
     gather.register_prehook(lambda g: got.update(d_rows=g[0]))
@@ -711,13 +719,15 @@ def step_inputs(state, cam, gt, sky, occ, uid, mlp, cfg, rcfg, bg, dev):
                 bg=bg, rgb=rgb, tfin=tfin,
                 g_rgb=zero_if_none(got["g_rgb"], rgb),     # the loss reads no T_final
                 g_tfin=zero_if_none(got["g_tfin"], tfin),
-                d_rows=zero_if_none(got["d_rows"], feat), n=n, entries=int(num_valid),
-                ids=segment_sum.entry_ids(gid, num_valid, n))
+                d_rows=zero_if_none(got["d_rows"], feat), n=n, entries=int(bounds[-1]),
+                bounds=bounds, order=order,
+                ids=segment_sum.layout_ids(bounds, order, feat.shape[0]))
 
 
 def hold_step_kernels(x, rcfg, dev):
-    """Kernels B (C = 13), C and D on one training step's inputs (`step_inputs`)
-    against their plain versions, with times and bounds: (table rows, record)."""
+    """Kernels B (C = 13), C, P and D on one training step's inputs
+    (`step_inputs`) against their plain versions, with times and bounds:
+    (table rows, record)."""
     feat, ts_, te_, bg, rgb, tfin = (x[k] for k in ("feat", "tile_start", "tile_end", "bg",
                                                     "rgb", "tfin"))
     g_rgb, g_tfin, d_rows, gid, n = (x[k] for k in ("g_rgb", "g_tfin", "d_rows", "ids", "n"))
@@ -759,22 +769,52 @@ def hold_step_kernels(x, rcfg, dev):
     c_bound = bound(entries * feat.shape[1] * 4 * 2 + T * 2 * 8 + T * P * (C + 3) * 4,
                     compositor_ops(backward_ops_per_pair(C), pairs))
 
-    # D: segment sum of the entry gradient rows into Gaussian rows
-    s_k = segment_sum_kernel.segment_sum_rows(d_rows, gid, n)
-    s_k2 = segment_sum_kernel.segment_sum_rows(d_rows, gid, n)
+    # P: the binning's permutation kernel, on the sort this step's layout
+    # came from (`binning_sort`), bitwise against its plain version.
+    bounds, order = x["bounds"], x["order"]
+    sort = binning_sort(bounds, order)
+    p_k = segment_sum_kernel.permute_entries(*sort)
+    p_p = binning.permute_entries_plain(*sort[:2])
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(p_k, p_p)) or not torch.equal(p_k[1], order):
+        raise AssertionError("permute_entries differs from its plain version")
+    p_launch = lambda: segment_sum_kernel.permute_entries(*sort)
+    p_ms, p_event_ms = device_ms(p_launch, 20), median_ms(p_launch, 20)
+    p_plain_ms = median_ms(lambda: binning.permute_entries_plain(*sort[:2]), 20)
+    # perm and gid read for each real entry, gauss_id and slot_pos written per slot
+    p_bound = bound(entries * (8 + 4) + order.shape[0] * (4 + 4), 0)
+
+    # D: segment sum of the entry gradient rows into Gaussian rows, on both
+    # routes: the binning's layout, as the rasterizer's gather takes it (timed
+    # with P, which builds the layout's order in the binning), and the general
+    # entry segment_sum_rows(rows, ids, n) (a sort of the ids, then the kernel).
+    routes = {"binned": lambda: segment_sum_kernel.segment_sum_ordered(
+                  d_rows, bounds, segment_sum_kernel.permute_entries(*sort)[1]),
+              "general": lambda: segment_sum_kernel.segment_sum_rows(d_rows, gid, n)}
+    got = {route: (fn(), fn()) for route, fn in routes.items()}
     s_p = segment_sum.segment_sum_rows_plain(d_rows, gid, n)
     torch.cuda.synchronize()
-    if not torch.equal(s_k, s_k2):
-        raise AssertionError("segment_sum kernel is not bitwise repeatable")
-    d_rel = float((s_k - s_p).abs().max() / s_p.abs().max())
-    if not d_rel < 1e-5:
-        raise AssertionError(f"segment_sum kernel: max rel err {d_rel:.3e}")
-    d_err = float((s_k - s_p).abs().max())
-    d_ms = median_ms(lambda: segment_sum_kernel.segment_sum_rows(d_rows, gid, n), 20)
+    d_rel = {}
+    for route, (s_k, s_k2) in got.items():
+        if not torch.equal(s_k, s_k2):
+            raise AssertionError(f"segment_sum kernel ({route}) is not bitwise repeatable")
+        d_rel[route] = float((s_k - s_p).abs().max() / s_p.abs().max())
+        if not d_rel[route] < 1e-5:
+            raise AssertionError(f"segment_sum kernel ({route}): max rel err {d_rel[route]:.3e}")
+    routes_equal = torch.equal(got["binned"][0], got["general"][0])
+    d_err = max(float((s_k - s_p).abs().max()) for s_k, _ in got.values())
+    del got
+    # Device times (P's and D's kernels), and beside them the event time of
+    # the route.
+    d_ms, d_event_ms = device_ms(routes["binned"], 20), median_ms(routes["binned"], 20)
+    d_parts = {"kernel": device_ms(lambda: segment_sum_kernel.segment_sum_ordered(
+                   d_rows, bounds, order), 20),
+               "permute_entries": p_ms,
+               "general_route": device_ms(routes["general"], 20)}
     d_plain_ms = median_ms(lambda: segment_sum.segment_sum_rows_plain(d_rows, gid, n), 20)
     zeros = torch.zeros((n + 1, d_rows.shape[1]), device=dev)   # row n: the dropped slots
     gid64 = gid.long()
-    d_lib_ms = median_ms(lambda: zeros.index_add_(0, gid64, d_rows), 20)
+    d_lib_ms = device_ms(lambda: zeros.index_add_(0, gid64, d_rows), 20)
     D, F = d_rows.shape
     # The sum reads the real entries' rows and ids once and writes the Gaussian
     # rows once; the budget's unused slots are dropped unread.
@@ -786,8 +826,13 @@ def hold_step_kernels(x, rcfg, dev):
                                      "zero_rows_as_plain": int(zero_p.sum()),
                                      "d_bg_max_abs_err": float((dbg_k - dbg_p).abs().max()),
                                      "ms": c_ms, "plain_ms": c_plain_ms},
-              "segment_sum": {"max_rel_err": d_rel, "bitwise_repeatable": True, "ms": d_ms,
-                              "plain_ms": d_plain_ms, "index_add_ms": d_lib_ms}}
+              "permute_entries": {"bitwise_equal": True, "ms": p_ms, "event_ms": p_event_ms,
+                                  "plain_ms": p_plain_ms, "bound_ms": p_bound[0]},
+              "segment_sum": {"max_rel_err_by_route": d_rel, "bitwise_repeatable": True,
+                              "routes_bitwise_equal": routes_equal, "ms": d_ms,
+                              "event_ms": d_event_ms,
+                              "ms_parts": d_parts, "plain_ms": d_plain_ms,
+                              "index_add_ms": d_lib_ms}}
     cu = "relightable3dgaussians_w_torch/csrc/"
     table = [
         dict(name="composite_forward_c13", route="cuda", source=cu + "tile_composite.cu",
@@ -798,48 +843,73 @@ def hold_step_kernels(x, rcfg, dev):
              bound_by=c_bound[1], library_ms=None),
         dict(name="segment_sum_rows", route="cuda", source=cu + "segment_sum.cu",
              replaces="relightable3dgaussians_w_tpu/ops/pallas/segment_sum.py:44",
-             max_abs_err=d_err, ms=d_ms, plain_ms=d_plain_ms, bound_ms=d_bound[0],
-             bound_by=d_bound[1], library_ms=d_lib_ms),
+             max_abs_err=d_err, ms=d_ms, event_ms=d_event_ms, ms_parts=d_parts,
+             plain_ms=d_plain_ms,
+             bound_ms=d_bound[0], bound_by=d_bound[1], library_ms=d_lib_ms),
+        dict(name="permute_entries", route="cuda", source=cu + "segment_sum.cu",
+             replaces="relightable3dgaussians_w_tpu/ops/pallas/segment_sum.py:138",
+             max_abs_err=0.0, ms=p_ms, event_ms=p_event_ms, plain_ms=p_plain_ms,
+             bound_ms=p_bound[0], bound_by=p_bound[1], library_ms=None),
     ]
     return table, record
 
 
-def hold_interval_expansion(call, label):
-    """Kernel A-int on the arguments the binning passed it (`step_inputs`'s
-    "expand", or built from a frame) against its plain version, bitwise, with
-    times and its byte bound: the kernels line's row and a record."""
+def binning_sort(bounds, order):
+    """The arguments the binning passed `permute_entries` for a segment layout
+    (`step_inputs`): the expansion's ids (Gaussian g on the slots of its run,
+    0 past them), the stable sort's permutation (the inverse of `order`) and
+    the entry count (no overflow: the budget holds every entry)."""
+    D = order.shape[0]
+    slots = torch.arange(D, device=order.device)
+    perm = torch.empty_like(slots).scatter_(0, order.long(), slots)
+    gid = torch.zeros(D, dtype=torch.int32, device=order.device)
+    seg = torch.repeat_interleave(torch.arange(bounds.shape[0] - 1, device=order.device,
+                                               dtype=torch.int32), bounds.diff())
+    gid[: seg.shape[0]] = seg
+    return gid, perm, bounds[-1]
+
+
+def hold_expansion(call, label):
+    """Kernel A (rects) or A-int (row intervals: a `packed` keyword) on the
+    arguments the binning passed it (`step_inputs`'s "expand", or built from a
+    frame) against its plain version, bitwise, with times and its byte bound:
+    the kernels line's row and a record (keys "a_*" or "a_int_*")."""
     args, kwargs = call
     packed = kwargs.get("packed")
-    if packed is None:
-        raise AssertionError(f"{label}: the binning walked rects, not row intervals")
+    name, key = ("expand_entries", "a") if packed is None else ("expand_entries_intervals",
+                                                                 "a_int")
     counts, max_dup = args[0], args[-1]
     keys_k, gid_k = expand_kernel.expand_entries(*args, packed=packed)
     keys_p, gid_p = binning.expand_entries_plain(*args, packed=packed)
     torch.cuda.synchronize()
     if not (torch.equal(keys_k, keys_p) and torch.equal(gid_k, gid_p)):
-        raise AssertionError(f"{label}: expand_entries (intervals) differs from its plain version")
-    k_ms = median_ms(lambda: expand_kernel.expand_entries(*args, packed=packed), 20)
+        raise AssertionError(f"{label}: {name} differs from its plain version")
+    launch = lambda: expand_kernel.expand_entries(*args, packed=packed)
+    k_ms, k_event_ms = device_ms(launch, 20), median_ms(launch, 20)
     p_ms = median_ms(lambda: binning.expand_entries_plain(*args, packed=packed), 5)
     n, entries = counts.shape[0], int(counts.sum())
     k_bound = bound(expand_bytes(counts, max_dup, packed),
                     EXPAND_OPS_PER_SLOT * min(entries, max_dup))
-    row = dict(name="expand_entries_intervals", route="cuda",
-               source="relightable3dgaussians_w_torch/csrc/expand.cu",
+    row = dict(name=name, route="cuda", source="relightable3dgaussians_w_torch/csrc/expand.cu",
                replaces="relightable3dgaussians_w_tpu/ops/pallas/expand.py:58",
-               max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=k_bound[0],
-               bound_by=k_bound[1], library_ms=None)
-    return row, {"rows": n, "entries": entries, "max_dup": max_dup,
-                 "a_int_bitwise_equal": True, "a_int_ms": k_ms, "a_int_plain_ms": p_ms,
-                 "a_int_bound_ms": k_bound[0]}
+               max_abs_err=0.0, ms=k_ms, event_ms=k_event_ms, plain_ms=p_ms,
+               bound_ms=k_bound[0], bound_by=k_bound[1], library_ms=None)
+    return row, {"inputs": label, "rows": n, "entries": entries, "max_dup": max_dup,
+                 f"{key}_bitwise_equal": True, f"{key}_ms": k_ms, f"{key}_event_ms": k_event_ms,
+                 f"{key}_plain_ms": p_ms, f"{key}_bound_ms": k_bound[0]}
 
 
 def train_kernels_phase(ts, dev):
-    """Kernels B (C = 13), C and D on the first training step's inputs."""
+    """Kernels A (the rect expansion the step's binning makes), B (C = 13), C,
+    P and D on the first training step's inputs."""
     x = step_inputs(ts.state, ts.cam, ts.gt, ts.ones, ts.ones, 0, ts.mlp, ts.cfg, ts.rcfg,
                     ts.bg, dev)
+    a_row, a_rec = hold_expansion(x["expand"], "training step")
+    if a_row["name"] != "expand_entries":
+        raise AssertionError("training step: the binning walked row intervals, not rects")
     table, record = hold_step_kernels(x, ts.rcfg, dev)
-    return table, {"phase": "train_kernels", "frame": "yaw 0, 800x800, 13 channels, step 0",
-                   **record}
+    return a_row, table, {"phase": "train_kernels", "frame": "yaw 0, 800x800, 13 channels, step 0",
+                          "expand": a_rec, **record}
 
 
 KERNELS = {"expand_entries": (expand_kernel, "launches"),
@@ -847,10 +917,12 @@ KERNELS = {"expand_entries": (expand_kernel, "launches"),
            "composite_forward": (composite_kernel, "launches"),
            "composite_forward_packed": (composite_kernel, "packed_launches"),
            "composite_backward": (composite_kernel, "backward_launches"),
-           "segment_sum_rows": (segment_sum_kernel, "launches")}
+           "segment_sum_rows": (segment_sum_kernel, "launches"),
+           "permute_entries": (segment_sum_kernel, "permute_launches")}
 
 
-TRAIN_PATH = ("expand_entries", "composite_forward", "composite_backward", "segment_sum_rows")
+TRAIN_PATH = ("expand_entries", "composite_forward", "composite_backward", "segment_sum_rows",
+              "permute_entries")
 TRAINER_PATH = ("expand_entries_intervals",) + TRAIN_PATH[1:]
 
 
@@ -1037,7 +1109,7 @@ def intervals_phase(host, dev):
         max_dup = ((int(rect_n * 1.05) + 4095) // 4096) * 4096
         call = (expand_args(pre, counts, gx, max_dup),
                 {"packed": packed.to(torch.int32).contiguous()})
-        _, a_int = hold_interval_expansion(call, label)
+        _, a_int = hold_expansion(call, label)
 
         # Render + one backward with row intervals on and off.
         wimg = torch.randn((RES, RES, 3), generator=torch.Generator(device=dev).manual_seed(0),
@@ -1160,7 +1232,7 @@ def trainer_phase(host, dev):
     default settings (pool headroom 8, demand-sized budget, the probe, the loss
     logged every 100 iterations) plus runtime.row_intervals=true and
     TRAINER_SCHEDULE. Then, on the trained state and view 0: kernels A-int, B
-    (C = 13), C and D against their plain versions at the shapes the trainer
+    (C = 13), C, P and D against their plain versions at the shapes the trainer
     gives them, the two reloads, and steps with row intervals on and off."""
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     t0 = time.perf_counter()
@@ -1230,7 +1302,9 @@ def trainer_phase(host, dev):
     view = tr.train_views[0]
     vargs = (view["mats"], view["image_t"], view["sky_t"], view["occ_t"], view["cam"].uid)
     x = step_inputs(tr.state, *vargs, tr.mlp, tr.cfg, tr.rcfg, tr.bg_color, dev)
-    a_int_row, a_int = hold_interval_expansion(x["expand"], "trainer")
+    a_int_row, a_int = hold_expansion(x["expand"], "trainer")
+    if a_int_row["name"] != "expand_entries_intervals":
+        raise AssertionError("trainer: the binning walked rects, not row intervals")
     step_rows, step_rec = hold_step_kernels(x, tr.rcfg, dev)
     del x
 
@@ -1456,6 +1530,7 @@ def eval_phase(dev):
                               ("B at C = 51", by_c.get(51, 0)),
                               ("C", launches["composite_backward"]),
                               ("D", launches["segment_sum_rows"]),
+                              ("P", launches["permute_entries"]),
                               ("A", launches["expand_entries"]
                                + launches["expand_entries_intervals"])) if n < 1]
     if missing:
@@ -1544,7 +1619,7 @@ def main() -> int:
         report(reference_phase(dev))
 
     ts = TrainSetup(host, cam0, dev)
-    train_table, record = train_kernels_phase(ts, dev)
+    a_step_row, train_table, record = train_kernels_phase(ts, dev)
     report(record)
     train_launches, record = train_phase(ts, dev)
     report(record)
@@ -1557,10 +1632,10 @@ def main() -> int:
     eval_launches, by_c, eval_rows, record = eval_phase(dev)
     report(record)
 
-    # Launches on each main path: serving (A, B at C = 3), packed serving (A,
-    # B'), the training step (A, B at C = 13, C, D), the trainer with row
-    # intervals (A-int, B at C = 13, C, D) and the evaluation chain (A or
-    # A-int, B at C = 13, 21 and 51, C, D).
+    # Launches on each main path: serving (A, P, B at C = 3), packed serving
+    # (A, P, B'), the training step (A, P, B at C = 13, C, D), the trainer with
+    # row intervals (A-int, P, B at C = 13, C, D) and the evaluation chain (A
+    # or A-int, P, B at C = 13, 21 and 51, C, D).
     paths = ("serve", "serve_packed", "train", "trainer", "eval")
     v, q, t, r, e = serve_launches, packed_launches, train_launches, trainer_launches, eval_launches
     by_path = {k: (v[k], q[k], t[k], r[k], e[k]) for k in KERNELS}
@@ -1576,9 +1651,11 @@ def main() -> int:
     # "at_trainer_shapes" those at the trainer's (A-int's row is the trainer's).
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "launches_by_path")
+    measured = ("max_abs_err", "ms", "event_ms", "ms_parts", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")
     for row, trow in zip(train_table, trainer_table):
-        row["at_trainer_shapes"] = {k: trow[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                                         "bound_ms", "bound_by", "library_ms")}
+        row["at_trainer_shapes"] = {k: trow[k] for k in measured if k in trow}
+    table[0]["at_train_step"] = {k: a_step_row[k] for k in measured if k in a_step_row}
     b_rows = {C: dict(train_table[0], name=f"composite_forward_c{C}", **eval_rows[C])
               for C in (21, 51)}
     for row in b_rows.values():
@@ -1589,8 +1666,8 @@ def main() -> int:
         counts = by_path[entry["name"]]
         entry["launches"] = sum(counts)
         entry["launches_by_path"] = dict(zip(paths, counts))
-    emit({"kernels": [{k: e[k] for k in keys + ("at_trainer_shapes",) if k in e}
-                      for e in table]})
+    extra = ("event_ms", "ms_parts", "at_train_step", "at_trainer_shapes")
+    emit({"kernels": [{k: e[k] for k in keys + extra if k in e} for e in table]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

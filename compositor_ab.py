@@ -1,25 +1,38 @@
-"""Two builds of the compositor source on one card, in turns, on chip_smoke's inputs.
+"""Two builds of the port's kernel sources on one card, in turns, on chip_smoke's inputs.
 
-    python3 compositor_ab.py OLD_SOURCE [--old-flags="--fmad=false"] [--out DIR]
+    python3 compositor_ab.py [OLD_COMPOSITOR] [--old-expand=OLD] [--old-segment-sum=OLD]
+                             [--old-flags="--fmad=false"] [--out DIR]
 
-OLD_SOURCE is another version of `relightable3dgaussians_w_torch/csrc/tile_composite.cu`
-with the same C interface (for example `git show <commit>:<that path> > build/ab/old.cu`);
-`--old-flags` are the extra nvcc flags that version was built with. The script
+Each OLD is another version of one source in `relightable3dgaussians_w_torch/csrc/`
+(for example `git show <commit>:<that path> > build/ab/old.cu`): OLD_COMPOSITOR
+of `tile_composite.cu` (kernels B, B' and C), `--old-expand` of `expand.cu`
+(kernel A; same C interface), `--old-segment-sum` of `segment_sum.cu` (kernel D
+as PRs 2-5 built it: `r3dgw_segment_sum` over an int64 sort permutation, which
+its wrapper got from sorting the ids). `--old-flags` are the extra nvcc flags
+the old compositor was built with. The script
 
-1. compiles both sources to cubins with `-Xptxas -v` and prints, per kernel, its
-   registers and spills and its static count of LDS, STS and SHFL instructions,
-   over the whole kernel and over its per-entry loop with that loop's opcode
-   histogram (from `cuobjdump -sass`, where the toolkit has it; the SASS goes
-   to `DIR/compositor_ab_{new,old}.sass`), then builds OLD_SOURCE as a shared
-   library with `ops/cuda/build.py`'s flags plus `--old-flags`;
-2. runs `chip_smoke.main()` with its compositor holders wrapped: wherever
-   chip_smoke holds kernel B against its plain version (`hold_forward`: the
-   serving frame at C = 3, the training step's and the trainer's C = 13, the
-   evaluation's 21 and 51), B' (the first frame of `serve_packed_phase`) or C
-   (`hold_step_kernels`: the training step and the trainer), both builds run on
-   the same inputs in turns (new, old, old, new; each turn the median of 20
-   launches timed with CUDA events), and the old build's output is compared with
-   the new one's.
+1. compiles both versions of each given source to cubins with `-Xptxas -v` and
+   prints, per kernel, its registers and spills and its static count of
+   instructions and of LDS, STS and SHFL, over the whole kernel and, for the
+   compositor, over its per-entry loop with that loop's opcode histogram (from
+   `cuobjdump -sass`, where the toolkit has it; the SASS goes to
+   `DIR/<source>_{new,old}.sass`), then builds each old source as a shared
+   library with `ops/cuda/build.py`'s flags;
+2. runs `chip_smoke.main()` with its holders wrapped, so that on every input
+   set chip_smoke holds a kernel on, both builds run on the same inputs in
+   turns (new, old, old, new; each turn the median of 20 launches timed with
+   CUDA events) and the old build's output is compared with the new one's:
+   B (`hold_forward`: the serving frame at C = 3, the training step's and the
+   trainer's C = 13, the evaluation's 21 and 51), B' (the first frame of
+   `serve_packed_phase`), C and D (`hold_step_kernels`: the training step and
+   the trainer) and A (`hold_expansion` on rects: the serving frame and the
+   training step). D's new side is the gather's route, the binning's
+   permutation kernel P plus the segment sum, with beside it the kernel
+   alone, P alone, what P replaces in the binning (PR 5's gather gid[perm]
+   and a scatter of the inverse permutation, P's plain version) and the
+   general route (sort + kernel); its old side is PR 5's wrapper (sort,
+   search, kernel). A and D are timed by the device time of what
+   they launch (chip_smoke's `device_ms`), and again with CUDA events.
 
 Each comparison is printed as a JSON line starting with "ab " and written to
 `DIR/compositor_ab.jsonl` (DIR: `--out`, by default `build/compositor_ab/`).
@@ -44,7 +57,10 @@ import numpy as np
 import torch
 
 import chip_smoke as cs
+from relightable3dgaussians_w_torch.ops import binning
 from relightable3dgaussians_w_torch.ops.cuda import build
+from relightable3dgaussians_w_torch.ops.cuda import expand as ek
+from relightable3dgaussians_w_torch.ops.cuda import segment_sum as sk
 from relightable3dgaussians_w_torch.ops.cuda import tile_composite as ck
 
 OUT_DIR = build.BUILD_DIR.parent / "compositor_ab"
@@ -62,13 +78,13 @@ def report(obj, log):
 
 def compile_all(sources):
     """{label: (source, extra flags)} -> {label: (shared library, cubin, nvcc log)},
-    every nvcc started at once."""
+    every nvcc started at once; a label is "<kernel source name>_{new,old}"."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
     for label, (src, extra) in sources.items():
         for kind, args in (("so", build.COMMON_FLAGS), ("cubin", ["-std=c++17", "-O3", "-cubin",
                                                                    "-Xptxas", "-v"])):
-            if kind == "so" and label == "new":
+            if kind == "so" and label.endswith("_new"):
                 continue   # the new library is build.py's own
             out = OUT_DIR / f"{label}.{kind}"
             cmd = [build._nvcc(), *build.ARCH_FLAGS, *args, *extra, "-o", str(out), str(src)]
@@ -172,7 +188,7 @@ def sass_counts(cubin, dump):
 
 def kernel_table(label, built, log):
     info = ptxas_info(built["log"])
-    sass = sass_counts(built["cubin"], log.parent / f"compositor_ab_{label}.sass") or {}
+    sass = sass_counts(built["cubin"], log.parent / f"{label}.sass") or {}
     names = demangle(sorted(set(info) | set(sass)))
     for mangled, name in names.items():
         report({"what": "kernel", "build": label, "kernel": name,
@@ -180,29 +196,38 @@ def kernel_table(label, built, log):
                 "sass_static": sass.get(mangled, "not measured")}, log)
 
 
-def load_old(path):
-    return ck.bind(ctypes.CDLL(str(path)))
-
-
 @contextlib.contextmanager
-def use(lib):
-    """Route the compositor wrappers to `lib` (a loaded build) inside the block."""
-    saved = ck._lib
-    ck._lib = lambda: lib
+def use(lib, module=ck):
+    """Route a wrapper module's launches to `lib` (a loaded build) inside the block."""
+    saved = module._lib
+    module._lib = lambda: lib
     try:
         yield
     finally:
-        ck._lib = saved
+        module._lib = saved
 
 
-def turns(fn, libs):
-    """Median CUDA-event ms of `fn` with each build, in turns new, old, old, new."""
+def under(ctx, fn):
+    """fn, called inside a fresh `ctx()` each time."""
+    def call():
+        with ctx():
+            return fn()
+    return call
+
+
+def turns(fn, libs, old_fn=None, extra=None, timer=cs.median_ms):
+    """ms of each side, in turns new, old, old, new: `fn` with each build of the
+    compositor (`libs`), or `fn` against `old_fn`; `extra` ({name: fn}) are
+    timed once each after the turns. `timer`: chip_smoke's `median_ms` (CUDA
+    events around each call) or `device_ms` (the card's kernel time)."""
+    sides = {"new": fn, "old": old_fn or under(lambda: use(libs["old"]), fn)}
     t = {"new": [], "old": []}
     for who in ("new", "old", "old", "new"):
-        with use(libs[who]):
-            t[who].append(cs.median_ms(fn, ITERS))
-    return {"new_ms": float(np.mean(t["new"])), "old_ms": float(np.mean(t["old"])),
-            "new_turns_ms": t["new"], "old_turns_ms": t["old"]}
+        t[who].append(timer(sides[who], ITERS))
+    return {"timer": timer.__name__, "new_ms": float(np.mean(t["new"])),
+            "old_ms": float(np.mean(t["old"])), "new_turns_ms": t["new"],
+            "old_turns_ms": t["old"],
+            **{f"{k}_ms": timer(f, ITERS) for k, f in (extra or {}).items()}}
 
 
 def forward_diff(fn, libs):
@@ -215,11 +240,60 @@ def forward_diff(fn, libs):
             "bitwise_equal": bool(torch.equal(new[0], old[0]) and torch.equal(new[1], old[1]))}
 
 
+def old_segment_sum_rows(lib, rows, ids, n):
+    """Kernel D as PRs 2-5 called it: a stable sort of the ids, each Gaussian's
+    range by binary search, then the old kernel over the int64 permutation."""
+    sorted_ids, perm = torch.sort(ids, stable=True)
+    bounds = torch.searchsorted(sorted_ids,
+                                torch.arange(n + 1, dtype=ids.dtype, device=ids.device))
+    out = torch.empty((n, rows.shape[1]), dtype=torch.float32, device=rows.device)
+    err = lib.r3dgw_segment_sum(rows.data_ptr(), rows.shape[1], perm.data_ptr(),
+                                bounds.data_ptr(), n, out.data_ptr(),
+                                torch.cuda.current_stream().cuda_stream)
+    build.check(lib, err, "old segment_sum launch")
+    return out
+
+
+def bind_old_segment_sum(lib):
+    lib.r3dgw_error_string.argtypes = [ctypes.c_int]
+    lib.r3dgw_error_string.restype = ctypes.c_char_p
+    lib.r3dgw_segment_sum.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                                      ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                                      ctypes.c_void_p]
+    lib.r3dgw_segment_sum.restype = ctypes.c_int
+    return lib
+
+
+def ab_segment_sum(x, old_lib, card, log, label):
+    """D on one step's inputs: the gather's route (the binning's permutation
+    kernel P, then the segment sum) against PR 5's wrapper, in turns, and their
+    outputs compared."""
+    d_rows, ids, n, bounds, order = (x[k] for k in ("d_rows", "ids", "n", "bounds", "order"))
+    sort = cs.binning_sort(bounds, order)
+    new_fn = lambda: sk.segment_sum_ordered(d_rows, bounds, sk.permute_entries(*sort)[1])
+    old_fn = lambda: old_segment_sum_rows(old_lib, d_rows, ids, n)
+    new, old = new_fn(), old_fn()
+    torch.cuda.synchronize()
+    report({"what": "D", "inputs": label, "features": d_rows.shape[1], "entries": x["entries"],
+            "rows": n, "slots": d_rows.shape[0],
+            **turns(new_fn, None, old_fn, extra={
+                "new_kernel": lambda: sk.segment_sum_ordered(d_rows, bounds, order),
+                "new_permute_entries": lambda: sk.permute_entries(*sort),
+                "pr5_gather": lambda: sort[0][sort[1]],
+                "plain_permute": lambda: binning.permute_entries_plain(*sort[:2]),
+                "new_general_route": lambda: sk.segment_sum_rows(d_rows, ids, n)},
+                timer=cs.device_ms),
+            "event_timed": turns(new_fn, None, old_fn),
+            "max_abs_diff": float((new - old).abs().max()),
+            "bitwise_equal": bool(torch.equal(new, old)), "card": card}, log)
+
+
 def install_hooks(libs, card, log):
-    """Wrap chip_smoke's compositor holders so that every input set they hold a
-    kernel on is also timed and compared with both builds."""
+    """Wrap chip_smoke's holders so that every input set they hold a kernel of a
+    compared source on is also timed and compared with both builds."""
     hold_forward, hold_step, serve_packed = cs.hold_forward, cs.hold_step_kernels, \
         cs.serve_packed_phase
+    hold_expansion = cs.hold_expansion
     step_labels = iter(("training step", "trainer's trained state"))
 
     def ab_forward(call, label):
@@ -233,6 +307,11 @@ def install_hooks(libs, card, log):
 
     def ab_step(x, rcfg, dev):
         out = hold_step(x, rcfg, dev)
+        label = next(step_labels)
+        if "segment_sum" in libs:
+            ab_segment_sum(x, libs["segment_sum"], card, log, label)
+        if "tile_composite" not in libs:
+            return out
         args = tuple(x[k] for k in ("feat", "tile_start", "tile_end", "bg", "rgb", "tfin",
                                     "g_rgb", "g_tfin")) + (rcfg.grid_x, rcfg.grid_y)
         fn = lambda: ck.composite_backward(*args)
@@ -243,7 +322,7 @@ def install_hooks(libs, card, log):
         rel = {name: float((new[:, c] - old[:, c]).abs().max() / old[:, c].abs().max())
                for name, c in GROUPS}
         c_row = next(r for r in out[0] if r["name"] == "composite_backward")
-        report({"what": "C", "inputs": next(step_labels), "channels": x["feat"].shape[1] - 6,
+        report({"what": "C", "inputs": label, "channels": x["feat"].shape[1] - 6,
                 "entries": x["entries"], "bound_ms": c_row["bound_ms"], **turns(fn, libs),
                 "max_rel_diff_by_group": rel,
                 "zero_rows_equal": bool(torch.equal((new == 0).all(1), (old == 0).all(1))),
@@ -270,13 +349,37 @@ def install_hooks(libs, card, log):
                 "card": card}, log)
         return out
 
-    cs.hold_forward, cs.hold_step_kernels, cs.serve_packed_phase = ab_forward, ab_step, ab_packed
+    def ab_expansion(call, label):
+        out = hold_expansion(call, label)
+        args, kwargs = call
+        if kwargs.get("packed") is None:
+            fn = lambda: ek.expand_entries(*args)
+            old = under(lambda: use(libs["expand"], ek), fn)()
+            new = fn()
+            torch.cuda.synchronize()
+            report({"what": "A", "inputs": label, "gaussians": args[0].shape[0],
+                    "entries": out[1]["entries"], "max_dup": args[-1],
+                    "bound_ms": out[0]["bound_ms"],
+                    **turns(fn, None, under(lambda: use(libs["expand"], ek), fn),
+                            timer=cs.device_ms),
+                    "event_timed": turns(fn, None, under(lambda: use(libs["expand"], ek), fn)),
+                    "bitwise_equal": bool(torch.equal(new[0], old[0])
+                                          and torch.equal(new[1], old[1])), "card": card}, log)
+        return out
+
+    cs.hold_step_kernels = ab_step
+    if "tile_composite" in libs:
+        cs.hold_forward, cs.serve_packed_phase = ab_forward, ab_packed
+    if "expand" in libs:
+        cs.hold_expansion = ab_expansion
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("old_source", type=Path)
-    ap.add_argument("--old-flags", default="", help="extra nvcc flags of the old build")
+    ap.add_argument("old_source", type=Path, nargs="?", help="old tile_composite.cu")
+    ap.add_argument("--old-expand", type=Path, help="old expand.cu")
+    ap.add_argument("--old-segment-sum", type=Path, help="old segment_sum.cu")
+    ap.add_argument("--old-flags", default="", help="extra nvcc flags of the old compositor")
     ap.add_argument("--out", type=Path, default=OUT_DIR, help="directory of the JSON lines and SASS")
     a = ap.parse_args()
     if not torch.cuda.is_available():
@@ -287,12 +390,22 @@ def main() -> int:
     log.write_text("")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    src, extra = build.KERNELS["tile_composite"]
-    built = compile_all({"new": (build.SRC_DIR / src, extra),
-                         "old": (a.old_source, shlex.split(a.old_flags))})
-    for label in ("new", "old"):
+    olds = {name: (path, shlex.split(a.old_flags) if name == "tile_composite" else [])
+            for name, path in (("tile_composite", a.old_source), ("expand", a.old_expand),
+                               ("segment_sum", a.old_segment_sum)) if path is not None}
+    if not olds:
+        ap.error("give at least one old source")
+    sources = {}
+    for name, old in olds.items():
+        src, extra = build.KERNELS[name]
+        sources.update({f"{name}_new": (build.SRC_DIR / src, extra), f"{name}_old": old})
+    built = compile_all(sources)
+    for label in sources:
         kernel_table(label, built[label], log)
-    libs = {"new": ck._lib(), "old": load_old(built["old"]["so"])}
+    bind = {"tile_composite": ck.bind, "expand": ek.bind, "segment_sum": bind_old_segment_sum}
+    libs = {name: bind[name](ctypes.CDLL(str(built[f"{name}_old"]["so"]))) for name in olds}
+    if "tile_composite" in libs:
+        libs.update(new=ck._lib(), old=libs["tile_composite"])
     install_hooks(libs, card, log)
     rc = cs.main()
     print(card, flush=True)

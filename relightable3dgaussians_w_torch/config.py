@@ -104,11 +104,11 @@ class RuntimeConfig:
                                       # cut >= 15%
     seed: int = 0
     detect_anomaly: bool = False      # torch.autograd anomaly detection
-    data_parallel: int = 0            # > 1: not yet ported (ROADMAP queue 8)
-    coordinator_address: str = ""     # multi-host: not yet ported (queue 8)
+    data_parallel: int = 0            # > 1: not yet ported (ROADMAP queue 1 item 5)
+    coordinator_address: str = ""     # multi-host: not yet ported (queue 1 item 5)
     num_processes: int = 0
     process_id: int = -1
-    gauss_shards: int = 1             # > 1: not yet ported (queue 8)
+    gauss_shards: int = 1             # > 1: not yet ported (queue 1 item 5)
     use_pallas: bool = True           # TPU layout only: no effect in the port
     split_dispatch: bool = True       # TPU layout only: no effect in the port
     profile_steps: str = ""           # "START:END": torch.profiler trace of those steps
@@ -178,7 +178,7 @@ def check_ported(cfg: Config) -> None:
     rt = cfg.runtime
     if rt.data_parallel > 1 or rt.gauss_shards > 1 or rt.coordinator_address:
         raise ValueError("runtime.data_parallel / gauss_shards / coordinator_address: "
-                         "multi-device training is not yet ported (ROADMAP queue 8)")
+                         "multi-device training is not yet ported (ROADMAP queue 1 item 5)")
     if cfg.model.init_embeddings or cfg.model.init_sh_mlp:
         raise ValueError("model.init_embeddings / init_sh_mlp: pretraining is not yet "
-                         "ported (ROADMAP queue 7)")
+                         "ported (ROADMAP queue 1 item 1)")

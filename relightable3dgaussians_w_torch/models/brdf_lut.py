@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import os
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -33,43 +34,53 @@ def _hammersley(n: int) -> np.ndarray:
     return np.stack([i.astype(np.float64) / n, bits.astype(np.float64) * 2.3283064365386963e-10], axis=-1)
 
 
+def _fg_row(r: float, xi: np.ndarray, ndotv: np.ndarray, V: np.ndarray,
+            num_samples: int) -> tuple[np.ndarray, np.ndarray]:
+    """(A, B) [U] of one roughness row: the JAX package's per-row loop body, op
+    for op, so the bits are the same. Only the z component of the reflected
+    direction L enters (N = +z), so only that component is formed."""
+    a = r * r
+    # GGX importance sample around N = +z.
+    phi = 2.0 * np.pi * xi[:, 0]
+    cos_t = np.sqrt((1.0 - xi[:, 1]) / (1.0 + (a * a - 1.0) * xi[:, 1]))
+    sin_t = np.sqrt(np.maximum(1.0 - cos_t**2, 0.0))
+    Hs = np.stack([np.cos(phi) * sin_t, np.sin(phi) * sin_t, cos_t], axis=-1)  # [S, 3]
+
+    vdoth = V @ Hs.T                                      # [U, S]
+    ndotl = 2.0 * vdoth * Hs[None, :, 2] - V[:, None, 2]  # L = 2 (V.H) H - V, z only
+    ndoth = np.maximum(Hs[:, 2], 0.0)[None]               # [U, S]
+    nv = ndotv[:, None]
+
+    # Height-correlated Smith masking-shadowing: G = 1 / (1 + L(V) + L(L)).
+    a2 = a * a
+    lam_v = (np.sqrt(1.0 + a2 * (1.0 - nv**2) / np.maximum(nv**2, 1e-12)) - 1.0) / 2.0
+    cl = np.clip(ndotl, 0.0, 1.0)
+    lam_l = (np.sqrt(1.0 + a2 * (1.0 - cl**2) / np.maximum(cl**2, 1e-12)) - 1.0) / 2.0
+    g = 1.0 / (1.0 + lam_v + lam_l)
+    g_vis = g * vdoth / np.maximum(ndoth * nv, 1e-8)
+    fc = (1.0 - np.clip(vdoth, 0.0, 1.0)) ** 5
+    valid = ndotl > 0
+    A = np.where(valid, (1.0 - fc) * g_vis, 0.0).sum(axis=1) / num_samples
+    B = np.where(valid, fc * g_vis, 0.0).sum(axis=1) / num_samples
+    return A, B
+
+
 def generate_fg_lut(size: int = 256, num_samples: int = 4096) -> np.ndarray:
     """Returns [size, size, 2] float32: [..., 0] = scale (A), [..., 1] = bias (B);
-    u (columns) -> NdotV, v (rows) -> roughness."""
+    u (columns) -> NdotV, v (rows) -> roughness. The rows are independent and
+    numpy releases the GIL in its array ops, so a thread pool computes them
+    at once."""
     xi = _hammersley(num_samples)  # [S, 2]
     ndotv = (np.arange(size, dtype=np.float64) + 0.5) / size  # columns (u)
     rough = (np.arange(size, dtype=np.float64) + 0.5) / size  # rows (v)
 
     out = np.zeros((size, size, 2), dtype=np.float64)
     V = np.stack([np.sqrt(1.0 - ndotv**2), np.zeros_like(ndotv), ndotv], axis=-1)  # [U, 3]
-
-    for r_idx, r in enumerate(rough):
-        a = r * r
-        # GGX importance sample around N = +z.
-        phi = 2.0 * np.pi * xi[:, 0]
-        cos_t = np.sqrt((1.0 - xi[:, 1]) / (1.0 + (a * a - 1.0) * xi[:, 1]))
-        sin_t = np.sqrt(np.maximum(1.0 - cos_t**2, 0.0))
-        Hs = np.stack([np.cos(phi) * sin_t, np.sin(phi) * sin_t, cos_t], axis=-1)  # [S, 3]
-
-        vdoth = V @ Hs.T                                  # [U, S]
-        L = 2.0 * vdoth[..., None] * Hs[None] - V[:, None]  # [U, S, 3]
-        ndotl = L[..., 2]
-        ndoth = np.maximum(Hs[:, 2], 0.0)[None]           # [U, S]
-        nv = ndotv[:, None]
-
-        # Height-correlated Smith masking-shadowing: G = 1 / (1 + L(V) + L(L)).
-        a2 = a * a
-        lam_v = (np.sqrt(1.0 + a2 * (1.0 - nv**2) / np.maximum(nv**2, 1e-12)) - 1.0) / 2.0
-        cl = np.clip(ndotl, 0.0, 1.0)
-        lam_l = (np.sqrt(1.0 + a2 * (1.0 - cl**2) / np.maximum(cl**2, 1e-12)) - 1.0) / 2.0
-        g = 1.0 / (1.0 + lam_v + lam_l)
-        g_vis = g * vdoth / np.maximum(ndoth * nv, 1e-8)
-        fc = (1.0 - np.clip(vdoth, 0.0, 1.0)) ** 5
-        valid = ndotl > 0
-        A = np.where(valid, (1.0 - fc) * g_vis, 0.0).sum(axis=1) / num_samples
-        B = np.where(valid, fc * g_vis, 0.0).sum(axis=1) / num_samples
-        out[r_idx, :, 0] = A
-        out[r_idx, :, 1] = B
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        rows = pool.map(lambda r: _fg_row(r, xi, ndotv, V, num_samples), rough)
+        for r_idx, (A, B) in enumerate(rows):
+            out[r_idx, :, 0] = A
+            out[r_idx, :, 1] = B
     return out.astype(np.float32)
 
 

@@ -14,8 +14,15 @@ Port of the JAX package's `ops/binning.py` `bin_gaussians` /
   its first 8 tile rows and then the full rect width below them;
 * one stable sort of the keys gives every tile's entries in depth order, and
   the tile ranges (and so the per-tile counts) come from a binary search of
-  the sorted keys. The JAX package's chunk-aligned layout and its tile
-  histograms exist for the TPU's DMA and have no counterpart here.
+  the sorted keys;
+* the layout the gather's gradient sums over (`ops/segment_sum.py`): Gaussian
+  g's slots are offsets[g] .. offsets[g] + counts[g] (clamped to the budget),
+  and the inverse of the sort permutation gives each slot's sorted position
+  (`permute_entries`, a CUDA kernel on the card, which also gathers the sorted
+  ids), so the backward sorts nothing.
+
+The JAX package's chunk-aligned layout and its tile histograms exist for the
+TPU's DMA and have no counterpart here.
 
 The entry budget `max_dup` is static, as in the JAX package: entries past it are
 dropped and `overflow` says how many.
@@ -28,6 +35,7 @@ from typing import NamedTuple
 import torch
 
 from .cuda import expand as _expand_kernel
+from .cuda import segment_sum as _segment_sum_kernel
 from .preprocess import H_CAP, PreprocessOut
 
 KEY_INVALID = torch.iinfo(torch.int64).max  # key of every unwritten slot
@@ -39,6 +47,9 @@ class BinningOut(NamedTuple):
     tile_end: torch.Tensor    # [num_tiles] int64 one-past-last entry of each tile
     num_entries: torch.Tensor # [] int64 entries before the budget clamp
     overflow: torch.Tensor    # [] int64 entries dropped by the budget (0 = exact)
+    seg_bounds: torch.Tensor  # [N + 1] int64: Gaussian g's pre-sort slots are
+                              # seg_bounds[g] .. seg_bounds[g + 1] (budget-clamped)
+    slot_pos: torch.Tensor    # [max_dup] int32 sorted position of each pre-sort slot
 
 
 def expand_entries_plain(counts: torch.Tensor, offsets: torch.Tensor,
@@ -92,6 +103,16 @@ def expand_entries_plain(counts: torch.Tensor, offsets: torch.Tensor,
     return keys, gid
 
 
+def permute_entries_plain(gid: torch.Tensor, perm: torch.Tensor):
+    """Plain version of the permutation kernel (`ops/cuda/segment_sum.py`
+    `permute_entries`): the sorted entries' ids gid[perm] and the inverse of
+    the sort permutation as int32, each pre-sort slot's sorted position."""
+    D = perm.shape[0]
+    slot_pos = torch.empty((D,), dtype=torch.int32, device=perm.device).scatter_(
+        0, perm, torch.arange(D, dtype=torch.int32, device=perm.device))
+    return gid[perm], slot_pos
+
+
 def bin_gaussians(pre: PreprocessOut, grid_x: int, grid_y: int, max_dup: int,
                   intervals=None) -> BinningOut:
     """The depth-sorted per-tile entry list within a static budget of `max_dup`.
@@ -122,10 +143,15 @@ def bin_gaussians(pre: PreprocessOut, grid_x: int, grid_y: int, max_dup: int,
     sorted_keys, perm = torch.sort(keys, stable=True)
     bounds = torch.arange(num_tiles + 1, dtype=torch.int64, device=dev) << 32
     edges = torch.searchsorted(sorted_keys, bounds)
+    seg_bounds = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), csum])
+    seg_bounds.clamp_max_(max_dup)
+    gauss_id, slot_pos = _segment_sum_kernel.permute_entries(gid, perm, total)
     return BinningOut(
-        gauss_id=gid[perm],
+        gauss_id=gauss_id,
         tile_start=edges[:-1],
         tile_end=edges[1:],
         num_entries=total,
         overflow=torch.clamp_min(total - max_dup, 0),
+        seg_bounds=seg_bounds,
+        slot_pos=slot_pos,
     )

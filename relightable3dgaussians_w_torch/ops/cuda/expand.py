@@ -24,7 +24,13 @@ _I64 = ctypes.c_int64
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    lib = build.load("expand")
+    return bind(build.load("expand"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a loaded build of `csrc/expand.cu`."""
+    lib.r3dgw_error_string.argtypes = [ctypes.c_int]
+    lib.r3dgw_error_string.restype = ctypes.c_char_p
     lib.r3dgw_expand_entries.argtypes = [_P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _P, _P]
     lib.r3dgw_expand_entries.restype = ctypes.c_int
     lib.r3dgw_expand_entries_intervals.argtypes = [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64,

@@ -139,10 +139,10 @@ def rasterize(means3d, scales, quats, opacities, colors, bg,
         mean2d = pre.mean2d if mean2d_probe is None else pre.mean2d + mean2d_probe.to(dev)
         # Entry rows in sorted order: mean2d, conic, opacity, colors (packed:
         # R|B, G). Slots past the real entries carry id 0 and lie outside every
-        # tile range: no gradient.
+        # tile range and every Gaussian's slot run: no gradient.
         color_cols = [c[:, None] for c in pack_rb(colors)] if cfg.packed_rgb else [colors]
         feat_pack = torch.cat([mean2d, pre.conic, opacities[:, None], *color_cols], dim=-1)
-        feat = gather_rows(feat_pack, binning.gauss_id, binning.num_entries)
+        feat = gather_rows(feat_pack, binning.gauss_id, binning.seg_bounds, binning.slot_pos)
     with stage("rasterize.composite"):
         if cfg.packed_rgb:
             tiles_rgb, tiles_tfin = _composite_kernel.composite_forward_packed(

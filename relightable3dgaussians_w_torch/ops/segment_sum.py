@@ -4,18 +4,23 @@ Port of the JAX package's `ops/pallas/segment_sum.py` (`segment_sum_rows_jnp`,
 `gather_rows_t`). The rasterizer gathers each Gaussian's feature row into every
 (tile, Gaussian) entry slot; the gradient of that gather sums the entry rows
 back into Gaussian rows. On the card the sum is the hand-written kernel of
-`ops/cuda/segment_sum.py` (sorted ids, one warp per Gaussian, no atomics, so
-two runs give the same bits); `segment_sum_rows_plain` below is its plain
-version, built on `index_add_`.
+`ops/cuda/segment_sum.py` (no atomics, so two runs give the same bits);
+`segment_sum_rows_plain` below is its plain version, built on `index_add_`.
+
+The kernel sums a segment layout: bounds [n + 1] (segment s owns the positions
+bounds[s] .. bounds[s + 1]) and order (the row at each position). The gather
+takes the binning's layout (`BinningOut.seg_bounds`, `.slot_pos`: each
+Gaussian's run of pre-sort slots and their sorted positions), so its backward
+needs no sort; `ids_layout` builds the same layout from arbitrary ids with one
+stable sort, for the general `segment_sum_rows(rows, ids, n)`.
 
 Rows are [D, F] row-major here (the JAX package keeps them transposed, [F_pad,
 D], with F padded to a multiple of 8 for the TPU).
 
 The entry budget has more slots than entries, and the slots past the last real
-entry gather Gaussian 0. Their gradient rows are zero, but summed under id 0
-they would make one segment of hundreds of thousands of rows, which one warp
-walks alone; so the backward gives them the id `num_segments`, which the sum
-drops (as `jax.ops.segment_sum` drops out-of-range ids).
+entry gather Gaussian 0. Their gradient rows are zero; they lie in no segment
+of the binning's layout, and `entry_ids` gives them the id `num_segments`,
+which the sum drops (as `jax.ops.segment_sum` drops out-of-range ids).
 """
 
 from __future__ import annotations
@@ -45,29 +50,50 @@ def entry_ids(gid: torch.Tensor, num_valid: torch.Tensor, num_segments: int) -> 
     return torch.where(slot < num_valid, gid, torch.full_like(gid, num_segments))
 
 
+def ids_layout(ids: torch.Tensor, num_segments: int):
+    """(bounds [n + 1] int64, order [D] int32) of ids in [0, num_segments]: one
+    stable sort (ties keep entry order) and each segment's range of sorted
+    positions by binary search; id num_segments falls past bounds[n]."""
+    sorted_ids, perm = torch.sort(ids, stable=True)
+    bounds = torch.searchsorted(
+        sorted_ids, torch.arange(num_segments + 1, dtype=ids.dtype, device=ids.device))
+    return bounds, perm.to(torch.int32)
+
+
+def layout_ids(bounds: torch.Tensor, order: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """The segment id of each of num_rows rows in a layout (`ids_layout`'s
+    inverse): s for the row at a position of segment s, n for rows at no
+    position. No sort."""
+    n = bounds.shape[0] - 1
+    ids = torch.full((num_rows,), n, dtype=torch.int64, device=bounds.device)
+    seg = torch.repeat_interleave(torch.arange(n, device=bounds.device), bounds.diff())
+    ids[order[bounds[0]:bounds[0] + seg.shape[0]].long()] = seg
+    return ids
+
+
 class _GatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, feat_pack, gid, num_valid):
-        ctx.save_for_backward(gid, num_valid)
-        ctx.num_segments = feat_pack.shape[0]
+    def forward(ctx, feat_pack, gid, seg_bounds, seg_order):
+        ctx.save_for_backward(seg_bounds, seg_order)
         return feat_pack[gid.long()]
 
     @staticmethod
     def backward(ctx, g_rows):
-        gid, num_valid = ctx.saved_tensors
+        seg_bounds, seg_order = ctx.saved_tensors
         with torch.profiler.record_function("gather_rows.backward"):
-            ids = entry_ids(gid, num_valid, ctx.num_segments)
-            d_pack = _segment_sum_kernel.segment_sum_rows(g_rows.contiguous(), ids,
-                                                          ctx.num_segments)
-        return d_pack, None, None
+            d_pack = _segment_sum_kernel.segment_sum_ordered(g_rows.contiguous(), seg_bounds,
+                                                             seg_order)
+        return d_pack, None, None, None
 
 
-def gather_rows(feat_pack: torch.Tensor, gid: torch.Tensor,
-                num_valid: torch.Tensor) -> torch.Tensor:
+def gather_rows(feat_pack: torch.Tensor, gid: torch.Tensor, seg_bounds: torch.Tensor,
+                seg_order: torch.Tensor) -> torch.Tensor:
     """feat_pack[gid] ([N, F] -> [D, F]) whose gradient is the segment sum of
     the entry-row gradients by `gid` (the CUDA kernel on the card, the plain
     version on the CPU).
 
-    num_valid: [] count of real entries (the binning's num_entries); the slots
-    past it carry no gradient (their rows are dropped from the sum)."""
-    return _GatherRows.apply(feat_pack, gid, num_valid)
+    seg_bounds [N + 1] int64, seg_order [>= seg_bounds[N]] int32: the layout of
+    gid's real entries (module docstring): the binning's `seg_bounds` and
+    `slot_pos`, or `ids_layout(entry_ids(gid, num_valid, N), N)`. Slots at no
+    position carry no gradient."""
+    return _GatherRows.apply(feat_pack, gid, seg_bounds, seg_order)

@@ -66,6 +66,34 @@ def test_expand_kernel_matches_plain(dev):
         assert torch.equal(keys, p_keys) and torch.equal(gid, p_gid)
 
 
+def test_expand_kernel_on_hand_made_counts(dev):
+    """Kernel A against its plain version, bitwise: a third of the Gaussians
+    with no entry, one rect of 64 x 64 tiles, small rects around it, and
+    budgets above the total, cutting the large rect's run in the middle and
+    cutting a run of small rects."""
+    rng = np.random.RandomState(3)
+    n, gx = 6000, 80
+    w = rng.randint(1, 6, n)
+    h = rng.randint(1, 6, n)
+    w[n // 3], h[n // 3] = 64, 64
+    x0, y0 = rng.randint(0, gx - 64, n), rng.randint(0, gx - 64, n)
+    counts = np.where(rng.rand(n) < 1 / 3, 0, w * h)
+    counts[n // 3] = 64 * 64
+    offsets = np.cumsum(counts) - counts
+    t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
+    args = (t(counts, torch.int32), t(offsets, torch.int64),
+            t(np.stack([x0, y0], 1), torch.int32), t(w, torch.int32),
+            t(rng.permutation(n), torch.int64), gx)
+    total, big = int(counts.sum()), int(offsets[n // 3])
+    for max_dup in (total + 5000, big + 2048 + 7, big - 3, 4096):
+        before = expand_kernel.launches
+        keys, gid = expand_kernel.expand_entries(*args, max_dup)
+        torch.cuda.synchronize()
+        assert expand_kernel.launches == before + 1
+        p_keys, p_gid = binning.expand_entries_plain(*args, max_dup)
+        assert torch.equal(keys, p_keys) and torch.equal(gid, p_gid), max_dup
+
+
 def _frame_rows(dev, channels, min_opacity=0.0):
     """A frame's sorted entry rows: (feat, tile_start, tile_end, grid_x, grid_y)."""
     pre, opa, colors, gx = _frame(dev, channels=channels, min_opacity=min_opacity)
@@ -254,7 +282,9 @@ def test_composite_kernels_on_hand_made_tiles(dev, channels):
 
 def test_segment_sum_kernel_matches_plain(dev):
     """Kernel D against index_add_ (the order of summation only) and bitwise
-    equal over two launches, on a frame's entry ids."""
+    equal over two launches, on a frame's entry ids and on the binning's
+    layout of the same entries (the rasterizer's route), which gives the same
+    bits."""
     pre, _, _, gx = _frame(dev)
     b = binning.bin_gaussians(pre, gx, gx, int(pre.tiles_touched.sum()) + 1024)
     n = pre.depth.shape[0]
@@ -264,11 +294,82 @@ def test_segment_sum_kernel_matches_plain(dev):
     before = segment_sum_kernel.launches
     got = segment_sum_kernel.segment_sum_rows(rows, ids, n)
     got2 = segment_sum_kernel.segment_sum_rows(rows, ids, n)
+    binned = segment_sum_kernel.segment_sum_ordered(rows, b.seg_bounds, b.slot_pos)
     torch.cuda.synchronize()
-    assert segment_sum_kernel.launches == before + 2
-    assert torch.equal(got, got2)
+    assert segment_sum_kernel.launches == before + 3
+    assert torch.equal(got, got2) and torch.equal(binned, got)
     want = segment_sum.segment_sum_rows_plain(rows, ids, n)
     assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("overflow", [False, True])
+def test_permute_kernel_matches_plain(dev, overflow):
+    """The binning's permutation kernel P against its plain version (the gather
+    gid[perm] and a scatter of the inverse permutation), bitwise, on a frame's
+    expansion and sort, with and without a budget overflow."""
+    pre, _, _, gx = _frame(dev)
+    n = pre.depth.shape[0]
+    counts = pre.tiles_touched.contiguous()
+    offsets = torch.cumsum(counts, 0) - counts
+    rank = torch.empty(n, dtype=torch.int64, device=dev)
+    rank[torch.argsort(pre.depth, stable=True)] = torch.arange(n, device=dev)
+    rect_w = torch.clamp_min(pre.rect_max[:, 0] - pre.rect_min[:, 0], 1).int().contiguous()
+    total = counts.sum().long()
+    max_dup = int(total) // 2 if overflow else int(total) + 5000
+    keys, gid = expand_kernel.expand_entries(counts, offsets, pre.rect_min.contiguous(), rect_w,
+                                             rank, gx, max_dup)
+    perm = torch.sort(keys, stable=True)[1]
+    before = segment_sum_kernel.permute_launches
+    got = segment_sum_kernel.permute_entries(gid, perm, total)
+    torch.cuda.synchronize()
+    assert segment_sum_kernel.permute_launches == before + 1
+    for a, b in zip(got, binning.permute_entries_plain(gid, perm)):
+        assert torch.equal(a, b)
+
+
+def _segment_layout(dev, n, max_dup, seed):
+    """A layout like the binning's: 90% of the n segments empty, the others of
+    1-40 entries, segment n // 2 of 10^5; bounds clamped to the budget
+    `max_dup`; order a random permutation of the budget's slots, ascending
+    within each segment (a Gaussian's entries sit in ascending sorted order)."""
+    rng = np.random.RandomState(seed)
+    counts = np.where(rng.rand(n) < 0.9, 0, rng.randint(1, 41, n))
+    counts[n // 2] = 100_000
+    bounds = np.minimum(np.concatenate([[0], np.cumsum(counts)]), max_dup)
+    order = rng.permutation(max_dup).astype(np.int32)
+    seg = np.repeat(np.arange(n), np.diff(bounds))
+    order[: seg.shape[0]] = order[: seg.shape[0]][np.lexsort((order[: seg.shape[0]], seg))]
+    return counts, torch.as_tensor(bounds, device=dev), torch.as_tensor(order, device=dev)
+
+
+@pytest.mark.parametrize("features", [9, 19])
+@pytest.mark.parametrize("overflow", [False, True])
+def test_segment_sum_routes_on_skewed_layouts(dev, features, overflow):
+    """Kernel D on both routes (a layout, as the gather passes the binning's,
+    and ids through segment_sum_rows) against segment_sum_rows_plain: mostly
+    empty segments, one hot segment of 10^5 entries, and a budget that cuts
+    the hot segment in the middle. Bitwise repeatable, the routes bitwise
+    equal, empty segments exactly zero, one launch per call."""
+    n = 40_000
+    total = int(_segment_layout(dev, n, 1, 7)[0].sum())
+    max_dup = total // 2 if overflow else total + 4096
+    counts, bounds, order = _segment_layout(dev, n, max_dup, 7)
+    rows = torch.randn((max_dup, features), generator=torch.Generator(device=dev).manual_seed(1),
+                       device=dev)
+    ids = segment_sum.layout_ids(bounds, order, max_dup)
+    if overflow:
+        assert 0 < int(bounds[n // 2 + 1] - bounds[n // 2]) < 100_000
+    before = segment_sum_kernel.launches
+    got = segment_sum_kernel.segment_sum_ordered(rows, bounds, order)
+    got2 = segment_sum_kernel.segment_sum_ordered(rows, bounds, order)
+    general = segment_sum_kernel.segment_sum_rows(rows, ids, n)
+    torch.cuda.synchronize()
+    assert segment_sum_kernel.launches == before + 3
+    assert torch.equal(got, got2) and torch.equal(got, general)
+    want = segment_sum.segment_sum_rows_plain(rows, ids, n)
+    assert _rel(got, want) < 1e-5
+    empty = torch.as_tensor(counts == 0, device=dev) | (bounds[1:] == bounds[:-1])
+    assert not bool(got[empty].any()) and bool(got[~empty].any(1).all())
 
 
 def test_train_step_on_card_matches_cpu(dev):

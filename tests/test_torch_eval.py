@@ -294,20 +294,20 @@ def test_full_eval_cli_chain(tmp_path):
         "env_map_scaling": {"threshold": 0.999, "scale": 10}}}))
     out = tmp_path / "out"
     full_eval.main([f"--data_root={data_root}", f"--output={out}", f"--scenes={scene}",
-                    "--device=cpu", "optimizer.iterations=6", "runtime.pool_capacity=9000",
-                    "runtime.max_dup=16384", "optimizer.optim_embeddings_test_iters=3"])
+                    "--device=cpu", "optimizer.iterations=2", "runtime.pool_capacity=9000",
+                    "runtime.max_dup=16384", "optimizer.optim_embeddings_test_iters=1"])
     mp = out / scene
     for split, names in (("train", ["r_1", "r_2", "r_3"]), ("test", ["r_0"])):
-        d = mp / split / "iteration_6"
+        d = mp / split / "iteration_2"
         for aov in render_cli.AOV_DIRS:
             ext = ".npy" if aov.startswith("rendered_") else ".png"
             assert {n + ext for n in names} <= set(os.listdir(d / aov)), aov
     results = json.loads((mp / "results.json").read_text())
-    assert set(results) == {"train/iteration_6", "test/iteration_6"}
+    assert set(results) == {"train/iteration_2", "test/iteration_2"}
     for r in results.values():
         assert np.isfinite([r["psnr"], r["ssim"], r["mse"]]).all() and r["lpips"] is None
         assert r["lpips_reason"].startswith("weights unavailable")
-    relit = mp / "relit_gt_envmaps" / "iteration_6"
+    relit = mp / "relit_gt_envmaps" / "iteration_2"
     assert (relit / "r_0.png").exists()
     lines = (relit / "metrics.txt").read_text().splitlines()
     assert lines[0].startswith("r_0: PSNR") and np.isfinite(float(lines[-1].split()[-1]))
@@ -315,12 +315,12 @@ def test_full_eval_cli_chain(tmp_path):
     assert any("test_psnr_halffit" in r for r in logged)
 
     common = [f"dataset.source_path={src}", f"dataset.model_path={mp}", "dataset.eval=true",
-              "runtime.pool_capacity=9000", "runtime.max_dup=16384", "model.load_iteration=6",
+              "runtime.pool_capacity=9000", "runtime.max_dup=16384", "model.load_iteration=2",
               f"dataset.test_config_path={tc}", "--device=cpu"]
     white = eval_white_light.main(common)
     assert set(white) == {"r_0"} and np.isfinite(white["r_0"]["psnr"])
     eval_gt_envmaps_all.main(common + ["--random_sun"])
-    every = json.loads((mp / "relit_gt_envmaps_all" / "iteration_6" / "results.json").read_text())
+    every = json.loads((mp / "relit_gt_envmaps_all" / "iteration_2" / "results.json").read_text())
     assert eval_gt_envmaps_all.lighting_condition_of("r_0_00000000") == "r_0"
     assert set(every) == {"r_0", "mean"} and np.isfinite(every["mean"]["psnr"])
     frames = relit_novel_view.main(common + [f"--envmap={data_root / 'env.png'}", "--steps=2"])

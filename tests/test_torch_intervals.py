@@ -56,15 +56,15 @@ def test_interval_binning_matches_jax(seed):
     tile_histogram_intervals."""
     arrs, cam, cfg = _aniso_scene(n=300, seed=seed)
     jp = _jax_pre(arrs, cam, cfg)
-    iv = jrow_intervals(jp, arrs["opacities"], cfg.tile)
-    ja = jbin_aligned(jp, cfg.grid_x, cfg.grid_y, 1 << 14, 128, use_expand_kernel=False,
-                      intervals=iv)
+    iv = jax.jit(jrow_intervals, static_argnums=(2,))(jp, arrs["opacities"], cfg.tile)
+    ja = jax.jit(lambda p, i: jbin_aligned(p, cfg.grid_x, cfg.grid_y, 1 << 14, 128,
+                                           use_expand_kernel=False, intervals=i))(jp, iv)
     tb = binning.bin_gaussians(_port_pre(jp), cfg.grid_x, cfg.grid_y, 1 << 14,
                                intervals=(to_t(iv[0]), to_t(iv[1])))
     assert int(tb.num_entries) == int(ja.num_entries) and int(tb.overflow) == 0
     counts = (tb.tile_end - tb.tile_start).numpy()
-    np.testing.assert_array_equal(counts, np.asarray(jhist_intervals(jp, iv[1], cfg.grid_x,
-                                                                     cfg.grid_y)))
+    np.testing.assert_array_equal(counts, np.asarray(jax.jit(
+        jhist_intervals, static_argnums=(2, 3))(jp, iv[1], cfg.grid_x, cfg.grid_y)))
     j_gid, j_start = np.asarray(ja.gauss_id), np.asarray(ja.tile_start)
     t_gid = tb.gauss_id.numpy()
     for t in range(cfg.grid_x * cfg.grid_y):
@@ -161,8 +161,8 @@ def test_interval_render_and_grads():
         img, aux = jrasterize(*a, arrs["bg"], cam, jcfg)
         return jnp.sum(img * wimg) + jnp.sum(aux.alpha), img
 
-    (_, j_img), j_grads = jax.value_and_grad(jloss, argnums=tuple(range(5)), has_aux=True)(
-        *[arrs[k] for k in names])
+    (_, j_img), j_grads = jax.jit(jax.value_and_grad(jloss, argnums=tuple(range(5)),
+                                                     has_aux=True))(*[arrs[k] for k in names])
     assert_image_close(img1.numpy(), np.asarray(j_img))
     for name, got, want in zip(names, g1, j_grads):
         want = np.asarray(want, np.float64)

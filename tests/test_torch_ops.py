@@ -9,6 +9,7 @@ a median error under 1e-5.
 """
 
 import numpy as np
+import jax
 import pytest
 import torch
 
@@ -165,7 +166,7 @@ def _port_rasterize(arrs, cam, cfg):
 @pytest.mark.parametrize("seed,n", [(0, 200), (1, 300)])
 def test_rasterize_matches_jax(seed, n):
     arrs, cam, cfg, _ = make_scene(n=n, seed=seed)
-    j_img, j_aux = jrasterize(**arrs, cam=cam, cfg=cfg)
+    j_img, j_aux = jax.jit(jrasterize, static_argnames=("cfg",))(**arrs, cam=cam, cfg=cfg)
     t_img, t_aux = _port_rasterize(arrs, cam, cfg)
     assert t_img.shape == (cfg.height, cfg.width, 3)
     assert int(t_aux.overflow) == 0
@@ -180,7 +181,7 @@ def test_rasterize_matches_jax_pallas_interpret():
     tests/test_pallas_composite.py runs it."""
     arrs, cam, cfg, _ = make_scene(n=300, seed=0)
     cfg_p = cfg._replace(use_pallas=True, pallas_interpret=True, pallas_chunk=128)
-    j_img, j_aux = jrasterize(**arrs, cam=cam, cfg=cfg_p)
+    j_img, j_aux = jax.jit(jrasterize, static_argnames=("cfg",))(**arrs, cam=cam, cfg=cfg_p)
     t_img, t_aux = _port_rasterize(arrs, cam, cfg)
     assert_image_close(t_img.numpy(), np.asarray(j_img))
     assert_image_close(t_aux.alpha.numpy(), np.asarray(j_aux.alpha))

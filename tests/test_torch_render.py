@@ -107,9 +107,9 @@ def test_shade_matches_jax():
     for specular in (True, False):
         got = light.shade(to_t(base), 4, to_t(pos), to_t(nrm), to_t(albedo), to_t(view),
                           to_t(kr), to_t(km), specular=specular)
-        want = jlight.shade(jnp.asarray(base), 4, jnp.asarray(pos), jnp.asarray(nrm),
-                            jnp.asarray(albedo), jnp.asarray(view), jnp.asarray(kr),
-                            jnp.asarray(km), specular=specular)
+        want = jax.jit(jlight.shade, static_argnums=(1,), static_argnames=("specular",))(
+            jnp.asarray(base), 4, jnp.asarray(pos), jnp.asarray(nrm), jnp.asarray(albedo),
+            jnp.asarray(view), jnp.asarray(kr), jnp.asarray(km), specular=specular)
         for g, w in zip(got, want):
             _close(g, w)
 
@@ -144,8 +144,10 @@ def test_compute_colors_rgb_only(fix_sky):
     (jp, js), (tp, ts) = _jax_scene()
     envl, sky = _lighting()
     cam = ge._camera(64, 64)
-    j_rgb, j_n = jrenderer.compute_colors(jp, js, jnp.asarray(envl), jnp.asarray(sky), 4, 1,
-                                          cam.campos, fix_sky=fix_sky, rgb_only=True)
+    j_rgb, j_n = jax.jit(jrenderer.compute_colors, static_argnums=(4, 5),
+                         static_argnames=("fix_sky", "rgb_only"))(
+        jp, js, jnp.asarray(envl), jnp.asarray(sky), 4, 1, cam.campos, fix_sky=fix_sky,
+        rgb_only=True)
     t_rgb, t_n = renderer.compute_colors(tp, ts, to_t(envl), to_t(sky), 4, 1,
                                          to_t(cam.campos), fix_sky=fix_sky)
     _close(t_rgb, j_rgb)
@@ -154,9 +156,10 @@ def test_compute_colors_rgb_only(fix_sky):
 
 def test_mlp_from_flax_params():
     jm = JMLPNet()
-    params = init_mlp(jax.random.PRNGKey(0), jm)
+    params = jax.jit(lambda k: init_mlp(k, jm))(jax.random.PRNGKey(0))
     e = np.random.RandomState(4).normal(size=(3, 32)).astype(np.float32)
-    j_envl, j_sky = jm.apply({"params": params}, jnp.asarray(e), deterministic=True)
+    j_envl, j_sky = jax.jit(lambda p, x: jm.apply({"params": p}, x, deterministic=True))(
+        params, jnp.asarray(e))
     tm = MLPNet()
     tm.load_state_dict(convert.mlp_state_dict_from_flax(jax.device_get(params)))
     tm.eval()
@@ -177,8 +180,8 @@ def test_render_rgb_matches_jax():
                              tile_chunk=4)
     tcfg = trasterize.RasterizerConfig(width=W, height=H, max_dup=1 << 15)
     bg = np.array([0.1, 0.2, 0.3], np.float32)
-    j_img, j_alpha = jrenderer.render_rgb(jp, js, jnp.asarray(envl), jnp.asarray(sky), cam,
-                                          jcfg, jnp.asarray(bg))
+    j_img, j_alpha = jax.jit(jrenderer.render_rgb, static_argnums=(5,))(
+        jp, js, jnp.asarray(envl), jnp.asarray(sky), cam, jcfg, jnp.asarray(bg))
     t_img, t_aux = renderer.render_rgb(tp, ts, to_t(envl), to_t(sky),
                                        trasterize.CameraMatrices(*[to_t(x) for x in cam]),
                                        tcfg, to_t(bg), device="cpu")

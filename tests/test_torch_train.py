@@ -109,8 +109,8 @@ def test_rasterize_grads_match_jax():
         img, aux = jrasterize(*a[:6], cam, cfg, mean2d_probe=a[6])
         return jnp.sum(img * wimg) + jnp.sum(aux.alpha * walpha)
 
-    j_grads = jax.grad(jloss, argnums=tuple(range(7)))(*[arrs[k] for k in names],
-                                                       jnp.zeros((n, 2), jnp.float32))
+    j_grads = jax.jit(jax.grad(jloss, argnums=tuple(range(7))))(
+        *[arrs[k] for k in names], jnp.zeros((n, 2), jnp.float32))
     t_args = [to_t(arrs[k]).requires_grad_(True) for k in names]
     probe = torch.zeros(n, 2, requires_grad=True)
     img, aux = rasterize.rasterize(*t_args, torch_cam(cam), torch_rcfg(cfg), device="cpu",
@@ -160,7 +160,8 @@ def test_gather_rows_grad_matches_jax():
         jsegment_sum.gather_rows_t(p, jnp.asarray(gid), n, f_used, True), jnp.asarray(cot)))(
         jnp.asarray(pack))
     t_pack = to_t(pack[:, :f_used]).requires_grad_(True)
-    rows = segment_sum.gather_rows(t_pack, to_t(gid), torch.tensor(d))
+    layout = segment_sum.ids_layout(segment_sum.entry_ids(to_t(gid), torch.tensor(d), n), n)
+    rows = segment_sum.gather_rows(t_pack, to_t(gid), *layout)
     np.testing.assert_array_equal(rows.detach().numpy(), pack[gid, :f_used])
     torch.sum(rows * to_t(cot[:f_used].T.copy())).backward()
     np.testing.assert_allclose(t_pack.grad.numpy(), np.asarray(j_grad)[:, :f_used],
@@ -174,7 +175,8 @@ def test_gather_rows_grad_matches_jax():
         jsegment_sum.gather_rows_t(p, jnp.asarray(gid), n, f_used, True), jnp.asarray(cot_cut)))(
         jnp.asarray(pack))
     t_pack.grad = None
-    rows = segment_sum.gather_rows(t_pack, to_t(gid), torch.tensor(cut))
+    layout = segment_sum.ids_layout(segment_sum.entry_ids(to_t(gid), torch.tensor(cut), n), n)
+    rows = segment_sum.gather_rows(t_pack, to_t(gid), *layout)
     torch.sum(rows * to_t(cot[:f_used].T.copy())).backward()
     np.testing.assert_allclose(t_pack.grad.numpy(), np.asarray(j_grad)[:, :f_used],
                                rtol=1e-5, atol=1e-5)

@@ -3,7 +3,7 @@
 Density control (`densify_and_prune` fed JAX's own split noise, for both
 screen-size variants and a pool too small for the selection), pool growth, the
 sky seeding (fed JAX's hemisphere draws), the entry-demand probe and the
-budget / row-interval decision, the view order, overflow healing, a 40-step
+budget / row-interval decision, the view order, overflow healing, a 26-step
 run of the port's trainer on tests/test_trainer_e2e.py's dataset, the MLP
 weights' flax bytes, and checkpoints both ways between the two trainers. The JAX trainer
 is built once per module (no training steps). Float results are held to 1e-5
@@ -96,11 +96,11 @@ def test_config_matches_jax_and_rejects_unported(scene, tmp_path):
                          "runtime:\n  pool_headroom: 2.0\n")
     assert (config.config_to_dict(config.load_config(over, str(yaml_path)))
             == jconfig.config_to_dict(jconfig.load_config(over, str(yaml_path))))
-    for over, queue in ((["runtime.data_parallel=2"], "queue 8"),
-                        (["runtime.gauss_shards=2"], "queue 8"),
-                        (["runtime.coordinator_address=h:1"], "queue 8"),
-                        (["model.init_embeddings=true"], "queue 7"),
-                        (["model.init_sh_mlp=true"], "queue 7")):
+    for over, queue in ((["runtime.data_parallel=2"], "queue 1 item 5"),
+                        (["runtime.gauss_shards=2"], "queue 1 item 5"),
+                        (["runtime.coordinator_address=h:1"], "queue 1 item 5"),
+                        (["model.init_embeddings=true"], "queue 1 item 1"),
+                        (["model.init_sh_mlp=true"], "queue 1 item 1")):
         with pytest.raises(ValueError, match=queue):
             cli_train.main([f"dataset.source_path={scene['data']}",
                             f"dataset.model_path={scene['root'] / 'x'}", *over, "--device=cpu"])
@@ -110,7 +110,7 @@ def test_config_matches_jax_and_rejects_unported(scene, tmp_path):
                             f"dataset.model_path={scene['root'] / 'x'}"])
 
 
-def test_eval_halffit_with_test_cameras_is_rejected(tmp_path, scene, monkeypatch):
+def test_eval_halffit_matches_jax(tmp_path, scene, monkeypatch):
     """With test cameras (dataset.eval=true) the port's evaluation report runs
     the half-fit: the mean embedding fitted on the left half of up to
     runtime.eval_halffit_views test views, the right-half masked PSNR logged as
@@ -351,7 +351,7 @@ def test_binning_overflow_rejects_one_update_and_heals(tmp_path, scene):
 
 @pytest.fixture(scope="module")
 def port_run(scene):
-    """40 steps of the port's trainer on the CPU, configured as the CLI does,
+    """26 steps of the port's trainer on the CPU, configured as the CLI does,
     with one densify round (iteration 25), the opacity reset (iteration 10), a
     profiled window (steps 2-3) and the loss logged every 10 steps."""
     out = str(scene["root"] / "port_run")
@@ -360,7 +360,7 @@ def port_run(scene):
                               "optimizer.densification_interval=25",
                               "optimizer.opacity_reset_interval=10000",
                               "optimizer.reg_normal_from_iter=0", "runtime.pool_capacity=4096",
-                              "runtime.max_dup=16384", "optimizer.iterations=40",
+                              "runtime.max_dup=16384", "optimizer.iterations=26",
                               "runtime.profile_steps=2:4"])
     tr = trainer.Relightable3DGWTrainer(cfg, device="cpu")
     tr.train(log_every=10)
@@ -376,13 +376,13 @@ def test_port_trainer_end_to_end(port_run):
     assert {"opacity_reset", "evaluate", "save"} <= set(events)
     assert any("train_psnr" in r for r in recs)
     assert os.path.getsize(os.path.join(out, "profile", "steps_2_4.json")) > 0
-    assert os.path.isdir(os.path.join(out, "panels", "iteration_40"))
-    for rel in ("point_cloud/iteration_40/point_cloud.ply",
-                "checkpoint_embeddings/iteration_40/embeddings_weights.npz",
-                "checkpoint_MLP/iteration_40/MLP_weights.npz",
-                "full_state/iteration_40/state.npz", "cfg_args", "relightable3DG-W_run.yaml"):
+    assert os.path.isdir(os.path.join(out, "panels", "iteration_26"))
+    for rel in ("point_cloud/iteration_26/point_cloud.ply",
+                "checkpoint_embeddings/iteration_26/embeddings_weights.npz",
+                "checkpoint_MLP/iteration_26/MLP_weights.npz",
+                "full_state/iteration_26/state.npz", "cfg_args", "relightable3DG-W_run.yaml"):
         assert os.path.exists(os.path.join(out, rel)), rel
-    assert len(os.listdir(os.path.join(out, "envlights_sh/iteration_40"))) == 3
+    assert len(os.listdir(os.path.join(out, "envlights_sh/iteration_26"))) == 3
     with open(os.path.join(out, "cameras.json")) as f:
         cams = json.load(f)
     assert len(cams) == 3 and {"id", "img_name", "width", "height", "position", "rotation",
@@ -390,7 +390,7 @@ def test_port_trainer_end_to_end(port_run):
 
     # Full-state round trip, then the PLY warm start (compacted pool).
     st = tr.state
-    tr.load_full_state(40)
+    tr.load_full_state(26)
     for got, want in zip(CK.state_leaves(tr.state), CK.state_leaves(st)):
         np.testing.assert_array_equal(got, want)
     shutil.copytree(os.path.join(out, "full_state"), os.path.join(out, "full_state.bak"))
@@ -400,7 +400,7 @@ def test_port_trainer_end_to_end(port_run):
     finally:
         os.rename(os.path.join(out, "full_state.bak"), os.path.join(out, "full_state"))
     alive = st.gauss_state.alive
-    assert int(tr.state.gauss_state.alive.sum()) == int(alive.sum()) and int(tr.state.step) == 40
+    assert int(tr.state.gauss_state.alive.sum()) == int(alive.sum()) and int(tr.state.step) == 26
     xyz_l = G.get_xyz(tr.state.params["gaussians"], tr.state.gauss_state)[tr.state.gauss_state.alive]
     xyz_s = G.get_xyz(st.params["gaussians"], st.gauss_state)[alive]
     np.testing.assert_allclose(np.sort(_np(xyz_l).ravel()), np.sort(_np(xyz_s).ravel()),
@@ -459,7 +459,7 @@ def test_mlp_bytes_match_flax(scene):
 
 
 def test_port_checkpoint_loads_into_jax(scene, port_run):
-    """The port saves (after 40 steps); the JAX trainer's load_full_state reads
+    """The port saves (after 26 steps); the JAX trainer's load_full_state reads
     every leaf, and its load_checkpoint PLY path the same Gaussians, embeddings
     and MLP weights."""
     jtr, tr = scene["jtr"], port_run["tr"]
@@ -467,7 +467,7 @@ def test_port_checkpoint_loads_into_jax(scene, port_run):
     saved_path, saved_state = jtr.model_path, jtr.state
     jtr.model_path = port_run["out"]
     try:
-        jtr.load_full_state(40)
+        jtr.load_full_state(26)
         for got, w in zip(jax.tree_util.tree_leaves(jtr.state), want):
             np.testing.assert_array_equal(np.asarray(got), w)
         # The PLY path loads into a pool of the current capacity (the port's now).
@@ -475,7 +475,7 @@ def test_port_checkpoint_loads_into_jax(scene, port_run):
                         os.path.join(port_run["out"], "full_state.bak"))
         shutil.rmtree(os.path.join(port_run["out"], "full_state"))
         try:
-            jtr.load_checkpoint(40)
+            jtr.load_checkpoint(26)
         finally:
             os.rename(os.path.join(port_run["out"], "full_state.bak"),
                       os.path.join(port_run["out"], "full_state"))
