@@ -1,4 +1,5 @@
-"""Smoke run of the torch port's serving path, training step and trainer on one CUDA card.
+"""Smoke run of the torch port's serving path, training step, trainer, evaluation,
+pretraining and library modules on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -91,10 +92,37 @@ Gaussians, random MLP weights from a seed), then:
             channels and of C, P and D; B at C = 21 (the first render) and C =
             51 (the sweep's first group) against its plain version with times
             and bounds; wall seconds of each stage.
+12. pretrain: a NeRF-OSR-layout dataset of 32 views on the orbit (yaw
+            -10..10 degrees, written after the trainer phase), alternating
+            between two lighting conditions named in both of the forms
+            `pretrain.lighting_condition_of` reads, each rendered under its
+            own embedding, with train/envmaps_init/<condition>.npy the envlight
+            SH of that embedding, through `cli.train.main` with
+            model.init_embeddings=true model.init_sh_mlp=true: the embedding
+            autoencoder at full width (256x256 inputs, channels_f 128, latent
+            32, batch 32), the unit-norm encoding, the SH-MLP fit (MLP
+            256/256/128, SH degrees 4 / 1) and trainer iterations: the last
+            epoch's MSE below the first's, embeddings [32, 32] within 1e-5 of
+            unit norm, every view's condition matching exactly one prior (not
+            the empty prefix), the SH-MLP's MSE against its priors lower after
+            the fit, every step's loss finite, launches of A or A-int, P, B at
+            C = 13, C and D; wall seconds of each stage and the peak device
+            memory; then one EmbeddingNet forward and backward (batch 4, 256^2)
+            on the card against the CPU (`embedding_net_check`);
+13. library: `knn_dist2_morton` on the 1,000,000 foreground points against
+            the host's exact 3-NN (times, the median approx / exact ratio, the
+            share within 2x; finite and positive) and against the CPU on a
+            100,000-point subset (1e-6 relative); `pbr_bsdf` on 1.01M points,
+            card against CPU (1e-5 relative, roughness in [0.5, 1]), with
+            times; a seeded 256x512 sky (`smooth_sky`) written as Radiance .hdr, loaded
+            into a cubemap and prefiltered by `build_mips` at res 512 on the
+            card (timed), card against CPU at res 64 (1e-5 relative); and
+            `shade_cubemap` of 1.01M points (timed).
 
 Depth cuts: the trainer phase runs 60 of the default 40,000 iterations, the
 eval phase EVAL_ITERS = 30 and RELIT_STEPS = 8 of the relighting CLI's 30
-frames; no width is cut.
+frames, the pretrain phase PRETRAIN_EPOCHS = 5 of the default 100 autoencoder
+epochs and PRETRAIN_ITERS = 20 trainer iterations; no width is cut.
 
 Each phase prints one JSON line, with the card's nvidia-smi name and power
 limit under "card". The last lines are the kernel table, the
@@ -122,7 +150,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from relightable3dgaussians_w_torch import synthetic, train_step as TS, viewer
+from torch.func import functional_call
+
+from relightable3dgaussians_w_torch import pretrain, synthetic, train_step as TS, viewer
 from relightable3dgaussians_w_torch.cli import eval_gt_envmaps as cli_eval_gt
 from relightable3dgaussians_w_torch.cli import eval_white_light as cli_white
 from relightable3dgaussians_w_torch.cli import full_eval as cli_full_eval
@@ -133,14 +163,17 @@ from relightable3dgaussians_w_torch.cli import train as cli_train
 from relightable3dgaussians_w_torch.config import Config
 from relightable3dgaussians_w_torch.data.ply import write_ply
 from relightable3dgaussians_w_torch.models import gaussians as G
-from relightable3dgaussians_w_torch.models.nets import MLPNet
-from relightable3dgaussians_w_torch.ops import binning, composite, preprocess, rasterize, segment_sum
+from relightable3dgaussians_w_torch.models import light_cubemap as cube
+from relightable3dgaussians_w_torch.models.nets import EmbeddingNet, MLPNet, fp32_convs
+from relightable3dgaussians_w_torch.ops import (binning, bsdf, composite, knn, preprocess,
+                                                rasterize, segment_sum)
 from relightable3dgaussians_w_torch.ops.cuda import build
 from relightable3dgaussians_w_torch.ops.cuda import expand as expand_kernel
 from relightable3dgaussians_w_torch.ops.cuda import segment_sum as segment_sum_kernel
 from relightable3dgaussians_w_torch.ops.cuda import tile_composite as composite_kernel
 from relightable3dgaussians_w_torch.renderer import compute_colors, render, render_rgb
 from relightable3dgaussians_w_torch.trainer import size_entry_budget
+from relightable3dgaussians_w_torch.utils.hdr import write_hdr
 
 N_GAUSS = 1_000_000
 N_SKY = 10_000
@@ -162,6 +195,17 @@ SCENE = "synthetic"                     # the trainer phase's dataset, reused by
 SCENE_DIR = WORK_DIR / "data" / SCENE
 EVAL_ITERS = 30
 RELIT_STEPS = 8
+PRETRAIN_DIR = WORK_DIR / "data" / "pretrain"
+PRETRAIN_VIEWS = 32          # a full autoencoder batch of 32
+PRETRAIN_EPOCHS = 5          # of the default optimizer.embednet_pretrain_epochs = 100
+PRETRAIN_ITERS = 20          # of the default optimizer.iterations = 40,000
+# Two NeRF-OSR lighting conditions, one of each name form that
+# pretrain.lighting_condition_of reads ("C01_..." and "<condition>_DSC_NNNN"),
+# each rendered under its own embedding; its SH prior is that embedding's
+# envlight SH: (condition, image name format, embedding index).
+CONDITIONS = (("C01", "C01_IMG_{:04d}", 0), ("lk2-day2", "lk2-day2_DSC_{:04d}", 1))
+LIBRARY_KNN_SUBSET = 100_000
+CUBEMAP_RES, CUBEMAP_CHECK_RES = 512, 64
 # Float ops of kernel B' unpacking one staged row: rb * 2^-12, floor, q_r * 4096,
 # the remainder, and the two dequantizing products.
 UNPACK_OPS_PER_ROW = 6
@@ -1161,26 +1205,32 @@ def orbit_view(deg):
     return view
 
 
-def write_dataset(host, root: Path, dev):
+def write_dataset(host, root: Path, dev, views=None, nerfosr=False):
     """A COLMAP-layout scene (sparse/0 text model + points3D.ply + images/) of
-    TRAINER_VIEWS 800x800 views on the orbit, yaw -10..10 degrees, each the
-    port's render of the scene under embedding 0; the point cloud is the
-    scene's foreground points."""
+    `views` = [(image name, yaw in degrees, embedding index)], 800x800, each
+    the port's render of the scene under that embedding; by default
+    TRAINER_VIEWS views "view_NN" on the orbit, yaw -10..10 degrees, under
+    embedding 0. The point cloud is the scene's foreground points. With
+    `nerfosr` the images are also listed in train/rgb (the NeRF-OSR layout)."""
     from PIL import Image
 
+    if views is None:
+        views = [(f"view_{i:02d}", -10.0 + 20.0 * i / (TRAINER_VIEWS - 1), 0)
+                 for i in range(TRAINER_VIEWS)]
     (root / "sparse" / "0").mkdir(parents=True)
     (root / "images").mkdir()
+    if nerfosr:
+        (root / "train" / "rgb").mkdir(parents=True)
     m = host.cfg.model
     focal = RES / (2.0 * float(np.tan(np.deg2rad(60.0) / 2)))
     lines = []
     with torch.inference_mode():
-        envl, sky = host.mlp(host.state.embeddings[0][None])
         xyz, scl, quat = (G.get_xyz(host.state.gaussians, host.state.gauss_state),
                           G.get_scaling(host.state.gaussians),
                           G.get_rotation(host.state.gaussians))
         opa = G.get_opacity(host.state.gaussians, host.state.gauss_state)[:, 0]
-        for i in range(TRAINER_VIEWS):
-            deg = -10.0 + 20.0 * i / (TRAINER_VIEWS - 1)
+        for i, (stem, deg, e) in enumerate(views):
+            envl, sky = host.mlp(host.state.embeddings[e][None])
             view = orbit_view(deg)
             cam = synthetic.camera(RES, RES, viewmat=view, device=dev)
             pre = preprocess.preprocess(xyz, scl, quat, cam.viewmat, cam.projmat, cam.tan_fovx,
@@ -1194,8 +1244,10 @@ def write_dataset(host, root: Path, dev):
             if int(aux.overflow) != 0:
                 raise AssertionError(f"dataset view {i}: entry overflow")
             u8 = (torch.clamp(img, 0.0, 1.0) * 255.0).to(torch.uint8).cpu().numpy()
-            name = f"view_{i:02d}.png"
+            name = f"{stem}.png"
             Image.fromarray(u8).save(root / "images" / name)
+            if nerfosr:
+                shutil.copyfile(root / "images" / name, root / "train" / "rgb" / name)
             a = np.deg2rad(deg)   # the view rotation is a yaw: q = (cos a/2, 0, sin a/2, 0)
             t = view[:3, 3]
             lines += [f"{i + 1} {np.cos(a / 2):.17g} 0 {np.sin(a / 2):.17g} 0 "
@@ -1585,6 +1637,287 @@ def eval_phase(dev):
     return launches, by_c, rows, record
 
 
+def write_pretrain_dataset(host, dev):
+    """The pretrain phase's NeRF-OSR-layout dataset: PRETRAIN_VIEWS views on
+    the orbit (yaw -10..10 degrees), alternating between the two CONDITIONS,
+    listed in train/rgb, and train/envmaps_init/<condition>.npy, the envlight
+    SH of the condition's embedding. Returns its wall seconds."""
+    t0 = time.perf_counter()
+    views = []
+    for i in range(PRETRAIN_VIEWS):
+        _, fmt, e = CONDITIONS[i % len(CONDITIONS)]
+        views.append((fmt.format(i), -10.0 + 20.0 * i / (PRETRAIN_VIEWS - 1), e))
+    write_dataset(host, PRETRAIN_DIR, dev, views, nerfosr=True)
+    prior_dir = PRETRAIN_DIR / "train" / "envmaps_init"
+    prior_dir.mkdir()
+    with torch.inference_mode():
+        for cond, _, e in CONDITIONS:
+            envl, _ = host.mlp(host.state.embeddings[e][None])
+            np.save(prior_dir / f"{cond}.npy", envl[0].cpu().numpy())
+    return time.perf_counter() - t0
+
+
+class Timed:
+    """Stands in for a function of `pretrain` while the train CLI runs: each
+    call's wall seconds (device synced before and after), arguments and
+    result."""
+
+    def __init__(self, name):
+        self.name, self.inner, self.calls = name, getattr(pretrain, name), []
+
+    def __call__(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.calls.append((time.perf_counter() - t0, args, out))
+        return out
+
+
+def embedding_net_check(dev, batch=4):
+    """One full-width EmbeddingNet forward (reconstruction, batch statistics)
+    and backward of the pretraining loss on `batch` 256x256 inputs, float32 on
+    the card and on the CPU, and float64 on the card as the exact reference.
+    The card's output must be within 1e-4 of the CPU's largest value. Each
+    float32 gradient of the card must be within 5e-3 of the float64 one, or
+    no farther from it than twice the CPU's float32 gradient: with random
+    weights and inputs the decoder's Dense and a few convolutions have
+    gradients that are sums which mostly cancel, and there the CPU's own
+    float32 gradient is 1-6% off (H100, torch 2.11). The convolution biases
+    in front of the batch norms have zero gradients up to rounding (the norm
+    removes a per-channel shift): theirs must stay at rounding level."""
+    gen = torch.Generator().manual_seed(0)
+    cpu_net = EmbeddingNet(generator=gen)
+    x = torch.rand((batch, 256, 256, 3), generator=gen)
+    res = {}
+    for name, d, dt in (("cpu", torch.device("cpu"), torch.float32), ("card", dev, torch.float32),
+                        ("card64", dev, torch.float64)):
+        net, xx = copy.deepcopy(cpu_net).to(d, dt), x.to(d, dt)
+        with fp32_convs():
+            recon = net(xx, pretraining=True, train=True)
+            torch.mean((recon - xx) ** 2).backward()
+        res[name] = (recon.detach().double().cpu(),
+                     {k: p.grad.double().cpu() for k, p in net.named_parameters()})
+    (ref, cpu_g), (got, card_g), (_, exact) = res["cpu"], res["card"], res["card64"]
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    fwd_err = rel(got, ref)
+    top = max(float(g.abs().max()) for g in exact.values())
+    biases = {f"{m}.{i}.bias" for m in ("conv", "deconv") for i in range(4)}
+    rows, bad = {}, {}
+    for k, g in exact.items():
+        if k in biases:
+            rows[k] = {"over_max_grad": max(float(card_g[k].abs().max()),
+                                            float(cpu_g[k].abs().max())) / top}
+            ok = rows[k]["over_max_grad"] < 1e-4
+        else:
+            rows[k] = {"card_vs_cpu": rel(card_g[k], cpu_g[k]),
+                       "card_vs_f64": rel(card_g[k], g), "cpu_vs_f64": rel(cpu_g[k], g)}
+            r = rows[k]
+            ok = r["card_vs_f64"] <= max(5e-3, 2 * r["cpu_vs_f64"])
+        if not ok:
+            bad[k] = rows[k]
+    if not fwd_err < 1e-4 or bad:
+        raise AssertionError(f"pretrain: EmbeddingNet card vs CPU: forward {fwd_err}, "
+                             f"gradients {bad}")
+    return {"batch": batch, "forward_max_rel_err": fwd_err, "gradients": rows}
+
+
+def pretrain_phase(dev):
+    """`cli.train.main` with model.init_embeddings=true model.init_sh_mlp=true on
+    the pretrain dataset: the autoencoder (256x256 inputs, channels_f 128,
+    latent 32, batch 32) for PRETRAIN_EPOCHS epochs, the encoding, the SH-MLP
+    fit to the two priors (MLP 256/256/128, SH degrees 4 / 1), then
+    PRETRAIN_ITERS trainer iterations; and the EmbeddingNet card-vs-CPU
+    check."""
+    timed = {n: Timed(n) for n in ("_load_resized_images", "pretrain_embedding_net",
+                                   "encode_embeddings", "initialize_sh_mlp")}
+    out = WORK_DIR / "pretrain"
+    argv = [f"dataset.source_path={PRETRAIN_DIR}", f"dataset.model_path={out}",
+            "model.init_embeddings=true", "model.init_sh_mlp=true",
+            f"optimizer.embednet_pretrain_epochs={PRETRAIN_EPOCHS}",
+            f"optimizer.iterations={PRETRAIN_ITERS}", "runtime.max_dup=0", f"--device={dev.type}"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    steps = TS.train_step = StepRecorder()
+    fwd = composite_kernel.composite_forward = ForwardRecorder(keep=())
+    for name, t in timed.items():
+        setattr(pretrain, name, t)
+    t0 = time.perf_counter()
+    try:
+        tr = cli_train.main(argv)
+    finally:
+        TS.train_step, composite_kernel.composite_forward = steps.inner, fwd.inner
+        for name, t in timed.items():
+            setattr(pretrain, name, t.inner)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
+
+    (load_s, _, images), = timed["_load_resized_images"].calls
+    (ae_s, _, (_, ae_losses)), = timed["pretrain_embedding_net"].calls
+    (encode_s, _, emb), = timed["encode_embeddings"].calls
+    (sh_s, (_, mlp, before, emb_in, names, priors), fitted), = timed["initialize_sh_mlp"].calls
+    epoch_mse = [float(np.mean(e)) for e in ae_losses]
+    if len(epoch_mse) != PRETRAIN_EPOCHS or not epoch_mse[-1] < epoch_mse[0]:
+        raise AssertionError(f"pretrain: autoencoder epoch MSE {epoch_mse}")
+    n_train = len(tr.train_views)
+    norm_err = float((torch.linalg.vector_norm(emb, dim=-1) - 1).abs().max())
+    if (images.shape != (PRETRAIN_VIEWS, 256, 256, 3) or tuple(emb.shape) != (n_train, 32)
+            or not norm_err < 1e-5 or not torch.equal(emb_in, emb)):
+        raise AssertionError(f"pretrain: images {images.shape}, embeddings {tuple(emb.shape)}, "
+                             f"norm error {norm_err}")
+    conds = [pretrain.lighting_condition_of(n) for n in names]
+    matches = [[p for p in priors if c in p] for c in conds]
+    if "" in conds or any(len(m) != 1 for m in matches) or len(set(conds)) != len(CONDITIONS):
+        raise AssertionError(f"pretrain: conditions {sorted(set(conds))}, priors {list(priors)}")
+    targets = torch.as_tensor(pretrain.sh_prior_targets(names, priors, mlp.sh_dim_envl),
+                              device=dev)
+    with torch.no_grad():
+        mse = lambda p: float(torch.mean((functional_call(mlp, p, (emb_in,))[0] - targets) ** 2))
+        sh_mse = {"before": mse(before), "after": mse(fitted)}
+    if not sh_mse["after"] < sh_mse["before"]:
+        raise AssertionError(f"pretrain: SH-MLP MSE against the priors {sh_mse}")
+    losses = [float(loss) for loss, _ in steps.out]
+    if len(losses) != PRETRAIN_ITERS or not np.isfinite(losses).all():
+        raise AssertionError(f"pretrain: trainer losses {losses}")
+    missing = [k for k in TRAIN_PATH[1:] if launches[k] < 1]
+    if launches["expand_entries"] + launches["expand_entries_intervals"] < 1:
+        missing.append("expand_entries")
+    if missing or set(fwd.calls) != {13}:
+        raise AssertionError(f"pretrain: no launch of {missing}; B by channels {fwd.calls}")
+    iter_ms = [a.elapsed_time(b) for a, b in zip(steps.marks, steps.marks[1:])]
+    return launches, {
+        "phase": "pretrain", "views": n_train, "resolution": [RES, RES], "argv": argv,
+        "conditions": sorted(set(conds)), "autoencoder": {
+            "input": 256, "channels_f": 128, "latent": 32, "batch": 32,
+            "epochs": PRETRAIN_EPOCHS, "epoch_mse": epoch_mse},
+        "embedding_norm_max_err": norm_err, "sh_mlp_mse": sh_mse,
+        "stage_s": {"image_load": load_s, "autoencoder": ae_s, "encode": encode_s,
+                    "sh_mlp_init": sh_s, "cli_total": total_s},
+        "ms_per_autoencoder_epoch": ae_s / PRETRAIN_EPOCHS * 1e3,
+        "trainer_iterations": PRETRAIN_ITERS, "trainer_losses": losses,
+        "trainer_iteration_ms": iter_ms,
+        "ms_per_iteration_median_2_on": float(np.median(iter_ms[1:])),
+        "launches": launches, "peak_memory_mb": peak_mb,
+        "embedding_net_card_vs_cpu": embedding_net_check(dev)}
+
+
+def rel_err(got, want):
+    return float((got.double().cpu() - want.double().cpu()).abs().max()
+                 / want.double().abs().max())
+
+
+def smooth_sky(h, rng):
+    """A [h, 2h, 3] equirect: a sky brightening towards the horizon, smooth
+    clouds and a Gaussian sun of peak 50, from `rng`. It is smooth near the
+    poles, as a sky is: there atan2 / acos, which the card and the CPU round
+    differently in the last ulp, decide which pixels of the top rows a texel
+    reads, and per-pixel noise there put ~3e-5 of the largest value between the
+    card's cubemap and the CPU's (H100 against an x86 CPU, torch 2.11)."""
+    yy, xx = np.mgrid[:h, :2 * h] / h
+    sky = (0.2 + 0.6 * yy)[..., None] * np.array([0.5, 0.7, 1.0])
+    for _ in range(6):
+        cy, cx, r = rng.uniform(0.1, 0.5), rng.uniform(0, 2), rng.uniform(0.05, 0.2)
+        sky += 0.3 * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * r * r))[..., None]
+    sun_y, sun_x = rng.uniform(0.15, 0.4), rng.uniform(0.2, 1.8)
+    sky += 50.0 * np.exp(-((yy - sun_y) ** 2 + (xx - sun_x) ** 2) / (2 * 0.02 ** 2))[..., None]
+    return sky.astype(np.float32)
+
+def library_phase(pts, dev):
+    """The library modules on the card at the scene's size: the Morton-order
+    k-NN of the 1,000,000 foreground points against the host's exact 3-NN (and
+    against the CPU on a 100,000-point subset), the point-light BSDF on 1.01M
+    points (card against CPU), a seeded equirect written as Radiance .hdr,
+    loaded into a cubemap and prefiltered at res 512 (card against CPU at 64),
+    and split-sum shading of 1.01M points against it."""
+    rec = {"phase": "library"}
+    pts = pts.to(dev)
+    approx = knn.knn_dist2_morton(pts)
+    morton_ms = median_ms(lambda: knn.knn_dist2_morton(pts), 3)
+    host_pts = pts.cpu().numpy()
+    t0 = time.perf_counter()
+    exact = knn.knn_dist2(host_pts)
+    exact_ms = (time.perf_counter() - t0) * 1e3
+    approx = approx.cpu().numpy()
+    if not (np.isfinite(approx).all() and (approx > 0).all()):
+        raise AssertionError("library: knn_dist2_morton gave non-finite or non-positive values")
+    ratio = approx / exact
+    sub = pts[:LIBRARY_KNN_SUBSET]
+    card_sub, cpu_sub = knn.knn_dist2_morton(sub).cpu(), knn.knn_dist2_morton(sub.cpu())
+    sub_err = float(((card_sub - cpu_sub).abs() / cpu_sub.abs()).max())
+    if not sub_err <= 1e-6:
+        raise AssertionError(f"library: knn_dist2_morton card vs CPU {sub_err}")
+    rec["knn"] = {"points": len(host_pts), "morton_ms": morton_ms, "exact_host_ms": exact_ms,
+                  "median_approx_over_exact": float(np.median(ratio)),
+                  "share_within_2x": float(np.mean(ratio <= 2.0)),
+                  "card_vs_cpu_subset_max_rel_err": sub_err, "subset": LIBRARY_KNN_SUBSET}
+
+    # pbr_bsdf card against CPU, held on roughness in [0.5, 1]. Below that the
+    # GGX peak turns a 1-ulp difference in a normalized half vector (CUDA's
+    # rsqrtf is not correctly rounded) into up to ~6e-4 of the largest value
+    # (ops/bsdf.py); the full-range number is recorded, not held.
+    rng = np.random.RandomState(0)
+    n = N_GAUSS + N_SKY
+    nrm = rng.normal(size=(n, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    arm = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    cpu_in = [torch.as_tensor(a) for a in (
+        rng.uniform(0, 1, (n, 3)).astype(np.float32), arm,
+        rng.normal(size=(n, 3)).astype(np.float32), nrm,
+        np.array([0.3, 2.0, 4.0], np.float32), np.array([-2.0, 3.0, 1.0], np.float32))]
+    dev_in = [a.to(dev) for a in cpu_in]
+    held_arm = torch.as_tensor(arm * np.array([1.0, 0.5, 1.0], np.float32)
+                               + np.array([0.0, 0.5, 0.0], np.float32))
+    rec["pbr_bsdf"] = {"points": n, "held_roughness": [0.5, 1.0]}
+    for mode in (0, 1):
+        full = rel_err(bsdf.pbr_bsdf(*dev_in, bsdf=mode), bsdf.pbr_bsdf(*cpu_in, bsdf=mode))
+        held_cpu = [cpu_in[0], held_arm, *cpu_in[2:]]
+        err = rel_err(bsdf.pbr_bsdf(*[a.to(dev) for a in held_cpu], bsdf=mode),
+                      bsdf.pbr_bsdf(*held_cpu, bsdf=mode))
+        if not err < 1e-5:
+            raise AssertionError(f"library: pbr_bsdf (bsdf={mode}) card vs CPU {err}")
+        rec["pbr_bsdf"][f"bsdf_{mode}"] = {
+            "max_rel_err": err, "full_range_max_rel_err": full,
+            "ms": median_ms(lambda: bsdf.pbr_bsdf(*dev_in, bsdf=mode), 10)}
+
+    env = smooth_sky(256, rng)
+    path = WORK_DIR / "library" / "envmap.hdr"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    write_hdr(str(path), env)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    base = cube.load_hdr_cubemap(str(path), CUBEMAP_RES, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mips = cube.build_mips(base)
+    torch.cuda.synchronize()
+    mips_s = time.perf_counter() - t0
+    levels = list(mips.specular) + [mips.diffuse]
+    if not all(bool(torch.isfinite(m).all()) for m in levels):
+        raise AssertionError("library: non-finite cubemap mips")
+    small = {}
+    for key, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        b = cube.load_hdr_cubemap(str(path), CUBEMAP_CHECK_RES, device=d)
+        m = cube.build_mips(b)
+        small[key] = [b, *m.specular, m.diffuse]
+    check = [rel_err(a, b) for a, b in zip(small["card"], small["cpu"])]
+    if not max(check) < 1e-5:
+        raise AssertionError(f"library: cubemap card vs CPU at res {CUBEMAP_CHECK_RES}: {check}")
+    ks = torch.as_tensor(rng.uniform(0, 1, (n, 3)).astype(np.float32), device=dev)
+    shade = lambda: cube.shade_cubemap(mips, dev_in[2], dev_in[3], dev_in[0], ks, dev_in[4])
+    shaded = shade()
+    if not bool(torch.isfinite(shaded).all()):
+        raise AssertionError("library: non-finite shade_cubemap output")
+    rec["cubemap"] = {"hdr": [256, 512], "res": CUBEMAP_RES, "load_s": load_s,
+                      "build_mips_s": mips_s, "levels": [int(m.shape[1]) for m in levels],
+                      "card_vs_cpu_res": CUBEMAP_CHECK_RES, "card_vs_cpu_max_rel_err": check,
+                      "shade_points": n, "shade_ms": median_ms(shade, 10)}
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -1628,25 +1961,34 @@ def main() -> int:
     report(intervals_phase(host, dev))
     trainer_launches, iv_entry, trainer_table, record = trainer_phase(host, dev)
     report(record)
+    pretrain_data_s = write_pretrain_dataset(host, dev)
+    fg_points = host.state.gaussians.xyz[:N_GAUSS].detach().clone()
     del host
     eval_launches, by_c, eval_rows, record = eval_phase(dev)
     report(record)
+    pretrain_launches, record = pretrain_phase(dev)
+    report({**record, "dataset_write_s": pretrain_data_s})
+    report(library_phase(fg_points, dev))
 
     # Launches on each main path: serving (A, P, B at C = 3), packed serving
     # (A, P, B'), the training step (A, P, B at C = 13, C, D), the trainer with
-    # row intervals (A-int, P, B at C = 13, C, D) and the evaluation chain (A
-    # or A-int, P, B at C = 13, 21 and 51, C, D).
-    paths = ("serve", "serve_packed", "train", "trainer", "eval")
-    v, q, t, r, e = serve_launches, packed_launches, train_launches, trainer_launches, eval_launches
-    by_path = {k: (v[k], q[k], t[k], r[k], e[k]) for k in KERNELS}
-    by_path["composite_forward"] = (v["composite_forward"], q["composite_forward"], 0, 0, 0)
+    # row intervals (A-int, P, B at C = 13, C, D), the evaluation chain (A or
+    # A-int, P, B at C = 13, 21 and 51, C, D) and the trainer after
+    # pretraining (A or A-int, P, B at C = 13, C, D).
+    paths = ("serve", "serve_packed", "train", "trainer", "eval", "pretrain")
+    v, q, t, r, e, w = (serve_launches, packed_launches, train_launches, trainer_launches,
+                        eval_launches, pretrain_launches)
+    by_path = {k: (v[k], q[k], t[k], r[k], e[k], w[k]) for k in KERNELS}
+    by_path["composite_forward"] = (v["composite_forward"], q["composite_forward"], 0, 0, 0, 0)
     by_path["composite_forward_c13"] = (0, 0, t["composite_forward"], r["composite_forward"],
-                                        by_c.get(13, 0))
-    by_path["composite_forward_c21"] = (0, 0, 0, 0, by_c.get(21, 0))
-    by_path["composite_forward_c51"] = (0, 0, 0, 0, by_c.get(51, 0))
-    if set(by_c) - {13, 21, 51} or q["composite_forward"] or t["composite_forward_packed"]:
+                                        by_c.get(13, 0), w["composite_forward"])
+    by_path["composite_forward_c21"] = (0, 0, 0, 0, by_c.get(21, 0), 0)
+    by_path["composite_forward_c51"] = (0, 0, 0, 0, by_c.get(51, 0), 0)
+    if (set(by_c) - {13, 21, 51} or q["composite_forward"] or t["composite_forward_packed"]
+            or w["composite_forward_packed"]):
         raise AssertionError(f"unexpected compositor launches: eval {by_c}, packed serving "
-                             f"{q['composite_forward']}, train {t['composite_forward_packed']}")
+                             f"{q['composite_forward']}, train {t['composite_forward_packed']}, "
+                             f"pretrain {w['composite_forward_packed']}")
     # B (C = 13), C and D: the numbers at the training step's shapes, and under
     # "at_trainer_shapes" those at the trainer's (A-int's row is the trainer's).
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

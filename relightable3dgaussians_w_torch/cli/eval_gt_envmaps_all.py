@@ -17,14 +17,9 @@ import sys
 import numpy as np
 
 from ..evaluation import eval_view_with_gt_envmap
+from ..pretrain import lighting_condition_of
 from .eval_gt_envmaps import eval_mask, load_envmap, load_test_config
 from .render import load_trainer, save_image, split_args
-
-
-def lighting_condition_of(image_name: str) -> str:
-    """Lighting-condition prefix of a NeRF-OSR image name (a copy of the JAX
-    package's `pretrain.lighting_condition_of`)."""
-    return image_name[:3] if image_name.startswith("C") else image_name[:-9]
 
 
 def main(argv=None):

@@ -21,8 +21,8 @@ from typing import Any
 class ModelConfig:
     envlight_sh_degree: int = 4
     sky_sh_degree: int = 1
-    init_embeddings: bool = False     # EmbeddingNet pretraining: not yet ported
-    init_sh_mlp: bool = False         # SH-prior MLP init: not yet ported
+    init_embeddings: bool = False
+    init_sh_mlp: bool = False
     embeddings_dim: int = 32
     load_iteration: int | None = None
     specular: bool = True
@@ -179,6 +179,3 @@ def check_ported(cfg: Config) -> None:
     if rt.data_parallel > 1 or rt.gauss_shards > 1 or rt.coordinator_address:
         raise ValueError("runtime.data_parallel / gauss_shards / coordinator_address: "
                          "multi-device training is not yet ported (ROADMAP queue 1 item 5)")
-    if cfg.model.init_embeddings or cfg.model.init_sh_mlp:
-        raise ValueError("model.init_embeddings / init_sh_mlp: pretraining is not yet "
-                         "ported (ROADMAP queue 1 item 1)")

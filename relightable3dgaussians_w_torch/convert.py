@@ -34,6 +34,39 @@ def mlp_state_dict_from_flax(params: dict) -> dict:
     return sd
 
 
+
+def embedding_net_from_flax(variables: dict) -> dict:
+    """Flax `EmbeddingNet` variables {"params": ..., "batch_stats": ...} (as
+    numpy; "batch_stats" may be absent, as in a gradient tree) -> the port's
+    `EmbeddingNet` state dict.
+
+    Conv kernels HWIO -> OIHW. A flax `ConvTranspose` applies its kernel
+    unflipped to the zero-stuffed input; `nn.ConvTranspose2d` is a
+    convolution's gradient, so its weight [in, out, k, k] holds the kernel
+    flipped in both spatial axes. Dense kernels [in, out] -> [out, in]: both
+    nets flatten the feature map in HWC order, so the rows carry over as they
+    are. BatchNorm scale / bias -> weight / bias, mean / var -> running_*."""
+    p = variables["params"]
+    a = lambda x: torch.as_tensor(np.array(x, np.float32))
+    sd = {}
+    for i in range(4):
+        conv, deconv = p[f"Conv_{i}"], p[f"ConvTranspose_{i}"]
+        sd[f"conv.{i}.weight"] = a(np.transpose(conv["kernel"], (3, 2, 0, 1)))
+        sd[f"conv.{i}.bias"] = a(conv["bias"])
+        sd[f"deconv.{i}.weight"] = a(np.transpose(np.asarray(deconv["kernel"])[::-1, ::-1],
+                                                  (2, 3, 0, 1)))
+        sd[f"deconv.{i}.bias"] = a(deconv["bias"])
+    for i in range(8):
+        bn = p[f"BatchNorm_{i}"]
+        sd[f"bn.{i}.weight"], sd[f"bn.{i}.bias"] = a(bn["scale"]), a(bn["bias"])
+        if "batch_stats" in variables:
+            st = variables["batch_stats"][f"BatchNorm_{i}"]
+            sd[f"bn.{i}.running_mean"], sd[f"bn.{i}.running_var"] = a(st["mean"]), a(st["var"])
+    for i in range(2):
+        sd[f"dense.{i}.weight"] = a(np.asarray(p[f"Dense_{i}"]["kernel"]).T)
+        sd[f"dense.{i}.bias"] = a(p[f"Dense_{i}"]["bias"])
+    return sd
+
 def embeddings_from_numpy(embeddings, device="cpu") -> torch.Tensor:
     """Per-image appearance embeddings [num_images, dim]."""
     return _t(embeddings, device).to(torch.float32)

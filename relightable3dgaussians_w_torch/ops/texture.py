@@ -1,10 +1,39 @@
-"""Bilinear sampling of the quad-packed FG LUT: port of the JAX package's
-`ops/texture.py` (`pack_bilinear_quads`, `bilinear_sample_packed`)."""
+"""Clamped bilinear texture sampling: port of the JAX package's `ops/texture.py`
+(`bilinear_sample`; `pack_bilinear_quads` / `bilinear_sample_packed`, which the
+FG LUT lookup uses)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def bilinear_sample(tex: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Sample a texture bilinearly with clamped borders (nvdiffrast's
+    `filter_mode='linear', boundary_mode='clamp'`): texel i's centre is at
+    (i + 0.5) / size; u indexes width, v height.
+
+    Args:
+        tex: [H, W, C] texture.
+        uv: [..., 2] coordinates (u, v).
+    Returns:
+        [..., C]
+    """
+    H, W = tex.shape[0], tex.shape[1]
+    u = uv[..., 0] * W - 0.5
+    v = uv[..., 1] * H - 0.5
+    u0 = torch.floor(u)
+    v0 = torch.floor(v)
+    fu = (u - u0)[..., None]
+    fv = (v - v0)[..., None]
+    u0i = torch.clamp(u0.long(), 0, W - 1)
+    u1i = torch.clamp(u0.long() + 1, 0, W - 1)
+    v0i = torch.clamp(v0.long(), 0, H - 1)
+    v1i = torch.clamp(v0.long() + 1, 0, H - 1)
+    return (tex[v0i, u0i] * (1 - fu) * (1 - fv)
+            + tex[v0i, u1i] * fu * (1 - fv)
+            + tex[v1i, u0i] * (1 - fu) * fv
+            + tex[v1i, u1i] * fu * fv)
 
 
 def pack_bilinear_quads(tex: np.ndarray) -> np.ndarray:

@@ -483,3 +483,129 @@ def test_interval_render_matches_rect_render(dev):
     # render and the gradients are the same bits.
     assert torch.equal(out[True][0], out[False][0]) and torch.equal(out[True][1], out[False][1])
     assert all(torch.equal(g0, g1) for g0, g1 in zip(out[False][2], out[True][2]))
+
+
+# ------------------------------------------------------------------ pretraining
+
+
+def test_embedding_net_on_card_matches_cpu(dev):
+    """The full-width autoencoder (256x256, channels_f 128, latent 32, batch
+    4): one training-mode forward and backward of the pretraining loss,
+    float32 on the card and the CPU (TF32 off), float64 on the card as the
+    exact reference (chip_smoke's `embedding_net_check`).
+    The forward and the running statistics match; each of the card's
+    gradients is within 5e-3 of the float64 one, or no farther from it than
+    twice the CPU's float32 gradient (sums that mostly cancel at random
+    weights put the CPU's own 2-6% off). The convolution biases in front of
+    the batch norms have zero gradients up to rounding."""
+    import copy
+
+    from relightable3dgaussians_w_torch.models.nets import EmbeddingNet, fp32_convs
+
+    gen = torch.Generator().manual_seed(0)
+    cpu_net = EmbeddingNet(generator=gen)
+    x = torch.rand((4, 256, 256, 3), generator=gen)
+    outs = []
+    for d, dt in (("cpu", torch.float32), (dev, torch.float32), (dev, torch.float64)):
+        net, xx = copy.deepcopy(cpu_net).to(d, dt), x.to(d, dt)
+        with fp32_convs():
+            recon = net(xx, pretraining=True, train=True)
+            torch.mean((recon - xx) ** 2).backward()
+        outs.append((recon.detach().double().cpu(),
+                     {k: p.grad.double().cpu() for k, p in net.named_parameters()},
+                     {k: b.double().cpu() for k, b in net.named_buffers()}))
+    (ref, cpu_g, ref_b), (got, card_g, got_b), (_, exact, _) = outs
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    assert rel(got, ref) < 1e-4
+    top = max(float(g.abs().max()) for g in exact.values())
+    for k, g in exact.items():
+        if k.startswith(("conv.", "deconv.")) and k.endswith(".bias"):
+            assert max(float(card_g[k].abs().max()), float(cpu_g[k].abs().max())) < 1e-4 * top, k
+        else:
+            assert rel(card_g[k], g) <= max(5e-3, 2 * rel(cpu_g[k], g)), k
+    for k, b in ref_b.items():
+        assert torch.allclose(got_b[k], b, rtol=1e-4, atol=1e-5), k
+
+
+def test_pretraining_on_card(dev):
+    """`pretrain_embedding_net` with a CUDA generator, `encode_embeddings` and
+    `initialize_sh_mlp` run on the card: the loss falls, the codes are unit
+    vectors, the MLP moves towards its priors."""
+    from torch.func import functional_call
+
+    from relightable3dgaussians_w_torch import pretrain
+
+    imgs = np.random.RandomState(0).uniform(0, 1, (12, 64, 64, 3)).astype(np.float32)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    net, losses = pretrain.pretrain_embedding_net(gen, imgs, num_epochs=4, batch_size=8,
+                                                  log_every=100)
+    assert np.mean(losses[-1]) < np.mean(losses[0])
+    emb = pretrain.encode_embeddings(net, imgs)
+    assert emb.device.type == "cuda" and emb.shape == (12, 32)
+    assert float((torch.linalg.vector_norm(emb, dim=-1) - 1).abs().max()) < 1e-5
+    mlp = MLPNet().to(dev)
+    start = {k: v.detach().clone() for k, v in mlp.named_parameters()}
+    names = [f"C0{i % 2}_IMG_{i:04d}" for i in range(12)]
+    priors = {"C00.npy": np.full((25, 3), 0.5), "C01.npy": np.full((25, 3), -0.5)}
+    fitted = pretrain.initialize_sh_mlp(gen, mlp, start, emb, names, priors, epochs=20)
+    t = torch.as_tensor(pretrain.sh_prior_targets(names, priors, 25), device=dev)
+    mse = lambda p: float(torch.mean((functional_call(mlp, p, (emb,))[0] - t) ** 2))
+    assert mse(fitted) < mse(start)
+
+
+# ------------------------------------------------------------------ library
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_knn_dist2_morton_on_card_matches_cpu(dev, masked):
+    from relightable3dgaussians_w_torch.ops import knn
+
+    rng = np.random.RandomState(2)
+    pts = torch.as_tensor(rng.normal(size=(50_000, 3)).astype(np.float32))
+    mask = torch.as_tensor(rng.uniform(size=50_000) > 0.3) if masked else None
+    got = knn.knn_dist2_morton(pts.to(dev), mask=None if mask is None else mask.to(dev))
+    want = knn.knn_dist2_morton(pts, mask=mask)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=0)
+
+
+def test_bsdf_and_cubemap_on_card_match_cpu(dev, tmp_path):
+    from relightable3dgaussians_w_torch.models import light_cubemap as cube
+    from relightable3dgaussians_w_torch.ops import bsdf
+    from relightable3dgaussians_w_torch.utils.hdr import write_hdr
+
+    rng = np.random.RandomState(3)
+    n = 100_000
+    nrm = rng.normal(size=(n, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    # Roughness in [0.5, 1]: below it the GGX peak turns CUDA's rsqrtf (not
+    # correctly rounded) into up to ~6e-4 of the largest value (ops/bsdf.py).
+    arm = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    arm[:, 1] = 0.5 + 0.5 * arm[:, 1]
+    cpu_in = [torch.as_tensor(a) for a in (
+        rng.uniform(0, 1, (n, 3)).astype(np.float32), arm,
+        rng.normal(size=(n, 3)).astype(np.float32), nrm, np.array([0.3, 2.0, 4.0], np.float32),
+        np.array([-2.0, 3.0, 1.0], np.float32))]
+    rel = lambda a, b: float((a.cpu() - b).abs().max() / b.abs().max())
+    for mode in (0, 1):
+        assert rel(bsdf.pbr_bsdf(*[a.to(dev) for a in cpu_in], bsdf=mode),
+                   bsdf.pbr_bsdf(*cpu_in, bsdf=mode)) < 1e-5
+    path = str(tmp_path / "env.hdr")
+    yy, xx = np.mgrid[:64, :128] / 64   # smooth near the poles (chip_smoke.smooth_sky)
+    sky = (0.2 + 0.6 * yy)[..., None] + 20.0 * np.exp(
+        -((yy - 0.3) ** 2 + (xx - 0.7) ** 2) / (2 * 0.05 ** 2))[..., None]
+    write_hdr(path, np.repeat(sky, 3, axis=-1).astype(np.float32))
+    mips = {}
+    for key, d in (("card", dev), ("cpu", "cpu")):
+        base = cube.load_hdr_cubemap(path, 32, device=d)
+        mips[key] = cube.build_mips(base)
+    for a, b in zip(mips["card"].specular + (mips["card"].diffuse,),
+                    mips["cpu"].specular + (mips["cpu"].diffuse,)):
+        assert a.device.type == "cuda" and rel(a, b) < 1e-5
+    lut = torch.as_tensor(rng.uniform(0, 1, (16, 16, 2)).astype(np.float32))
+    ks = torch.as_tensor(rng.uniform(0, 1, (n, 3)).astype(np.float32))
+    got = cube.shade_cubemap(mips["card"], cpu_in[2].to(dev), cpu_in[3].to(dev),
+                             cpu_in[0].to(dev), ks.to(dev), cpu_in[4].to(dev), fg_lut=lut)
+    want = cube.shade_cubemap(mips["cpu"], cpu_in[2], cpu_in[3], cpu_in[0], ks, cpu_in[4],
+                              fg_lut=lut)
+    assert rel(got, want) < 1e-5

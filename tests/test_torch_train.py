@@ -22,7 +22,7 @@ import __graft_entry__ as ge
 from relightable3dgaussians_w_tpu import renderer as jrenderer
 from relightable3dgaussians_w_tpu import train_step as JTS
 from relightable3dgaussians_w_tpu.models import gaussians as jG
-from relightable3dgaussians_w_tpu.models.nets import MLPNet as JMLPNet
+from relightable3dgaussians_w_tpu.models.nets import MLPNet as JMLPNet, init_mlp as jinit_mlp
 from relightable3dgaussians_w_tpu.ops import composite as jcomposite
 from relightable3dgaussians_w_tpu.ops.binning import bin_gaussians as jbin_gaussians
 from relightable3dgaussians_w_tpu.ops.pallas import segment_sum as jsegment_sum
@@ -44,6 +44,7 @@ from relightable3dgaussians_w_torch.utils import graphics, losses
 from test_rasterize import make_scene
 from test_torch_ops import _jax_pre, to_t, torch_cam, torch_rcfg
 from test_torch_render import _jax_scene, _lighting
+import test_train_step
 from test_train_step import build_setup
 
 GRAD_TOL = 5e-3
@@ -63,9 +64,14 @@ def rel_err(got, want):
 @pytest.mark.parametrize("channels", [3, 13])
 def test_composite_backward_matches_jax(channels):
     arrs, cam, cfg, _ = make_scene(n=200, seed=2, channels=channels)
-    jp = _jax_pre(arrs, cam, cfg)
-    jb = jbin_gaussians(jp, cfg.grid_x, cfg.grid_y, cfg.max_dup)
-    feat = j_gather_features(jp, jb, arrs["opacities"], arrs["colors"], None)
+
+    @partial(jax.jit, static_argnums=2)
+    def entries(arrs, cam, cfg):   # the JAX rasterizer's compositor inputs, compiled once
+        jp = _jax_pre(arrs, cam, cfg)
+        jb = jbin_gaussians(jp, cfg.grid_x, cfg.grid_y, cfg.max_dup)
+        return jb, j_gather_features(jp, jb, arrs["opacities"], arrs["colors"], None)
+
+    jb, feat = entries(arrs, cam, cfg)
     lmax = int(np.max(np.asarray(jb.tile_end) - np.asarray(jb.tile_start)))
     ccfg = jcomposite.CompositeConfig(grid_x=cfg.grid_x, grid_y=cfg.grid_y, tile=cfg.tile,
                                       channels=channels, lmax_per_tile=lmax, tile_chunk=4)
@@ -73,9 +79,9 @@ def test_composite_backward_matches_jax(channels):
     rng = np.random.RandomState(channels)
     g_tiles = rng.randn(T, P, channels).astype(np.float32)
     g_tfin = rng.randn(T, P).astype(np.float32)
-    j_dfeat, j_dbg = jcomposite.composite_backward(feat, jb.tile_start, jb.tile_end, arrs["bg"],
-                                                   ccfg, jnp.asarray(g_tiles),
-                                                   jnp.asarray(g_tfin))
+    j_dfeat, j_dbg = jax.jit(jcomposite.composite_backward, static_argnums=4)(
+        feat, jb.tile_start, jb.tile_end, arrs["bg"], ccfg, jnp.asarray(g_tiles),
+        jnp.asarray(g_tfin))
     args = (to_t(feat), to_t(jb.tile_start).long(), to_t(jb.tile_end).long(), to_t(arrs["bg"]))
     t_dfeat, t_dbg = composite.composite_backward(*args, cfg.grid_x, cfg.grid_y,
                                                   to_t(g_tiles), to_t(g_tfin))
@@ -191,8 +197,9 @@ def test_compute_colors_aov_matches_jax(debug):
     (jp, js), (tp, ts) = _jax_scene()
     envl, sky = _lighting()
     cam = ge._camera(64, 64)
-    j_c, j_n = jrenderer.compute_colors(jp, js, jnp.asarray(envl), jnp.asarray(sky), 4, 1,
-                                        cam.campos, debug=debug)
+    j_c, j_n = jax.jit(jrenderer.compute_colors, static_argnums=(4, 5),
+                       static_argnames="debug")(jp, js, jnp.asarray(envl), jnp.asarray(sky), 4,
+                                                1, cam.campos, debug=debug)
     t_c, t_n = renderer.compute_colors(tp, ts, to_t(envl), to_t(sky), 4, 1, to_t(cam.campos),
                                        debug=debug, rgb_only=False)
     assert t_c.shape == (tp.xyz.shape[0], 21 if debug else 13)
@@ -203,21 +210,19 @@ def test_compute_colors_aov_matches_jax(debug):
 # ------------------------------------------------------------ losses
 
 
-def _value_and_grads(t_fn, j_fn, *arrays):
-    """(port value, JAX value, port grads, JAX grads) of a scalar loss of the
-    float arrays."""
+def _port_value_and_grads(t_fn, *arrays):
     t_args = [to_t(a).requires_grad_(True) for a in arrays]
     t_val = t_fn(*t_args)
     t_val.backward()
-    j_val, j_grads = jax.jit(jax.value_and_grad(j_fn, argnums=tuple(range(len(arrays)))))(
-        *[jnp.asarray(a) for a in arrays])
-    return float(t_val.detach()), float(j_val), [t.grad for t in t_args], j_grads
+    return float(t_val.detach()), [t.grad for t in t_args]
 
 
-def _check(t_fn, j_fn, *arrays):
-    t_val, j_val, t_grads, j_grads = _value_and_grads(t_fn, j_fn, *arrays)
-    np.testing.assert_allclose(t_val, j_val, rtol=1e-5)
-    for tg, jg in zip(t_grads, j_grads):
+def _check(t_fn, j_out, *arrays):
+    """The port's value and gradients of a scalar loss of the float arrays
+    against JAX's (`j_out` = (value, grads))."""
+    t_val, t_grads = _port_value_and_grads(t_fn, *arrays)
+    np.testing.assert_allclose(t_val, float(j_out[0]), rtol=1e-5)
+    for tg, jg in zip(t_grads, j_out[1], strict=True):
         assert rel_err(tg, jg) < GRAD_TOL
 
 
@@ -227,35 +232,13 @@ def test_losses_match_jax():
     img1 = rng.uniform(0, 1, (C, H, W)).astype(np.float32)
     img2 = rng.uniform(0, 1, (C, H, W)).astype(np.float32)
     mask = (rng.rand(1, H, W) < 0.7).astype(np.float32)
-    tm, jm = to_t(mask), jnp.asarray(mask)
-    for t_mask, j_mask in ((None, None), (tm, jm)):
-        _check(lambda a, b: losses.ssim(a, b, mask=t_mask),
-               lambda a, b: jlosses.ssim(a, b, mask=j_mask), img1, img2)
-        _check(lambda a, b: losses.l1_loss(a, b, mask=t_mask),
-               lambda a, b: jlosses.l1_loss(a, b, mask=j_mask), img1, img2)
-        np.testing.assert_allclose(float(losses.psnr(to_t(img1), to_t(img2), t_mask)),
-                                   float(jlosses.psnr(jnp.asarray(img1), jnp.asarray(img2),
-                                                      j_mask)), rtol=1e-5)
-
-    # R+ constraint with the JAX loss's own sample directions.
     key = jax.random.PRNGKey(7)
-    dirs = to_t(jax.random.uniform(key, (10, 3), minval=-1.0, maxval=1.0))
     sh_env = rng.normal(0, 0.5, (25, 3)).astype(np.float32)
-    _check(lambda s: losses.envl_sh_loss(dirs, s, 4),
-           lambda s: jlosses.envl_sh_loss(key, s, 4), sh_env)
-
     n = 300
     scaling = rng.uniform(0.01, 0.3, (n, 3)).astype(np.float32)
     radii = rng.randint(0, 4, n).astype(np.int32)
     is_sky = rng.rand(n) < 0.2
     depths = rng.uniform(1, 30, n).astype(np.float32)
-    _check(lambda s: losses.min_scale_loss(s, to_t(radii), to_t(is_sky)),
-           lambda s: jlosses.min_scale_loss(s, jnp.asarray(radii), jnp.asarray(is_sky)), scaling)
-    _check(lambda d: losses.depth_loss_gaussians(d, to_t(is_sky), to_t(radii > 0)),
-           lambda d: jlosses.depth_loss_gaussians(d, jnp.asarray(is_sky),
-                                                  jnp.asarray(radii > 0)), depths)
-
-    # Depth-derived normals, weighted so the gradient reaches every pixel.
     depth = rng.uniform(2, 4, (H, W)).astype(np.float32)
     wn = rng.randn(H, W, 3).astype(np.float32)
     a = np.deg2rad(20.0)
@@ -263,14 +246,47 @@ def test_losses_match_jax():
     c2w[0, 0], c2w[0, 2], c2w[2, 0], c2w[2, 2] = np.cos(a), np.sin(a), -np.sin(a), np.cos(a)
     c2w[:3, 3] = [0.3, -0.2, 1.0]
     tan = np.float32(0.6)
+
+    @jax.jit
+    def jax_losses(img1, img2, jm, sh_env, scaling, depths, depth):
+        """Every JAX value and gradient below, compiled once."""
+        vg = lambda f, *a: jax.value_and_grad(f, argnums=tuple(range(len(a))))(*a)
+        out = {}
+        for name, m in (("plain", None), ("masked", jm)):
+            out["ssim_" + name] = vg(lambda a, b: jlosses.ssim(a, b, mask=m), img1, img2)
+            out["l1_" + name] = vg(lambda a, b: jlosses.l1_loss(a, b, mask=m), img1, img2)
+            out["psnr_" + name] = jlosses.psnr(img1, img2, m)
+        out["envl"] = vg(lambda s: jlosses.envl_sh_loss(key, s, 4), sh_env)
+        out["min_scale"] = vg(lambda s: jlosses.min_scale_loss(s, jnp.asarray(radii),
+                                                               jnp.asarray(is_sky)), scaling)
+        out["depth"] = vg(lambda d: jlosses.depth_loss_gaussians(d, jnp.asarray(is_sky),
+                                                                 jnp.asarray(radii > 0)), depths)
+        out["normal"] = jgraphics.depth_to_normal(depth, jnp.asarray(c2w), tan, tan)
+        out["normal_loss"] = vg(lambda d: jnp.sum(jgraphics.depth_to_normal(
+            d, jnp.asarray(c2w), tan, tan) * wn), depth)
+        return out
+
+    j = jax_losses(*[jnp.asarray(x) for x in (img1, img2, mask, sh_env, scaling, depths, depth)])
+    tm = to_t(mask)
+    for t_mask, name in ((None, "plain"), (tm, "masked")):
+        _check(lambda a, b: losses.ssim(a, b, mask=t_mask), j["ssim_" + name], img1, img2)
+        _check(lambda a, b: losses.l1_loss(a, b, mask=t_mask), j["l1_" + name], img1, img2)
+        np.testing.assert_allclose(float(losses.psnr(to_t(img1), to_t(img2), t_mask)),
+                                   float(j["psnr_" + name]), rtol=1e-5)
+
+    # R+ constraint with the JAX loss's own sample directions.
+    dirs = to_t(jax.random.uniform(key, (10, 3), minval=-1.0, maxval=1.0))
+    _check(lambda s: losses.envl_sh_loss(dirs, s, 4), j["envl"], sh_env)
+    _check(lambda s: losses.min_scale_loss(s, to_t(radii), to_t(is_sky)), j["min_scale"], scaling)
+    _check(lambda d: losses.depth_loss_gaussians(d, to_t(is_sky), to_t(radii > 0)), j["depth"],
+           depths)
+
+    # Depth-derived normals, weighted so the gradient reaches every pixel.
     np.testing.assert_allclose(
         graphics.depth_to_normal(to_t(depth), to_t(c2w), to_t(tan), to_t(tan)).numpy(),
-        np.asarray(jgraphics.depth_to_normal(jnp.asarray(depth), jnp.asarray(c2w), tan, tan)),
-        rtol=1e-5, atol=1e-6)
+        np.asarray(j["normal"]), rtol=1e-5, atol=1e-6)
     _check(lambda d: torch.sum(graphics.depth_to_normal(d, to_t(c2w), to_t(tan), to_t(tan))
-                               * to_t(wn)),
-           lambda d: jnp.sum(jgraphics.depth_to_normal(d, jnp.asarray(c2w), tan, tan) * wn),
-           depth)
+                               * to_t(wn)), j["normal_loss"], depth)
 
 
 # ------------------------------------------------------------ one training step
@@ -281,7 +297,10 @@ def step_setup():
     """tests/test_train_step.py's scene at step 1 (the normal and sky-depth
     terms on), the fused JAX loss and gradients on the jnp path, the port's
     copy of the state and the JAX key's draws."""
-    tstate, _, cam, gt, sky, occ, jcfg = build_setup()
+    with pytest.MonkeyPatch.context() as mp:   # flax's init op by op takes ~4 s
+        mp.setattr(test_train_step, "init_mlp", lambda key, mlp: jax.jit(
+            lambda k: jinit_mlp(k, mlp))(key))
+        tstate, _, cam, gt, sky, occ, jcfg = build_setup()
     tstate = tstate._replace(step=jnp.asarray(1))
     jmlp = JMLPNet(sh_degree_envl=4, sh_degree_sky=1)
     jrcfg = JRasterizerConfig(width=64, height=64, max_dup=1 << 14, max_tiles_per_gauss=32,

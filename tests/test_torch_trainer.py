@@ -32,6 +32,7 @@ from relightable3dgaussians_w_tpu import renderer as jrenderer
 from relightable3dgaussians_w_tpu import trainer as jtrainer
 from relightable3dgaussians_w_tpu.data.cameras import Camera as JCamera
 from relightable3dgaussians_w_tpu.models import gaussians as jG
+from relightable3dgaussians_w_tpu.models.nets import init_mlp as jinit_mlp
 from relightable3dgaussians_w_tpu.renderer import render as jrender
 
 from relightable3dgaussians_w_torch import checkpoint as CK
@@ -78,8 +79,11 @@ def scene(tmp_path_factory):
     root = tmp_path_factory.mktemp("trainer")
     data = str(root / "scene")
     make_dataset(data)
-    jtr = jtrainer.Relightable3DGWTrainer(_cfg(data, str(root / "jax"), jconfig.Config,
-                                               max_dup=0))
+    with pytest.MonkeyPatch.context() as mp:   # flax's init op by op takes ~4 s
+        mp.setattr(jtrainer, "init_mlp", lambda key, mlp: jax.jit(
+            lambda k: jinit_mlp(k, mlp))(key))
+        jtr = jtrainer.Relightable3DGWTrainer(_cfg(data, str(root / "jax"), jconfig.Config,
+                                                   max_dup=0))
     ttr = trainer.Relightable3DGWTrainer(_cfg(data, str(root / "port"), max_dup=0),
                                          device="cpu")
     return dict(root=root, data=data, jtr=jtr, ttr=ttr)
@@ -98,9 +102,7 @@ def test_config_matches_jax_and_rejects_unported(scene, tmp_path):
             == jconfig.config_to_dict(jconfig.load_config(over, str(yaml_path))))
     for over, queue in ((["runtime.data_parallel=2"], "queue 1 item 5"),
                         (["runtime.gauss_shards=2"], "queue 1 item 5"),
-                        (["runtime.coordinator_address=h:1"], "queue 1 item 5"),
-                        (["model.init_embeddings=true"], "queue 1 item 1"),
-                        (["model.init_sh_mlp=true"], "queue 1 item 1")):
+                        (["runtime.coordinator_address=h:1"], "queue 1 item 5")):
         with pytest.raises(ValueError, match=queue):
             cli_train.main([f"dataset.source_path={scene['data']}",
                             f"dataset.model_path={scene['root'] / 'x'}", *over, "--device=cpu"])
@@ -139,7 +141,7 @@ def test_eval_halffit_matches_jax(tmp_path, scene, monkeypatch):
     # JAX's report renders eagerly op by op; one jitted render compiles once.
     monkeypatch.setattr(jrenderer, "render", jax.jit(jrenderer.render, static_argnums=(5,),
                                                      static_argnames=JRENDER_STATIC))
-    jtr.evaluate_report(7)
+    jtr.evaluate_report(7, n_train_views=0)   # the half-fit alone is compared
 
     def halffit(path):
         recs = [json.loads(line) for line in open(path)]

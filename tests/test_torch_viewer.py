@@ -26,7 +26,9 @@ from relightable3dgaussians_w_tpu.ops.rasterize import RasterizerConfig as JRast
 from relightable3dgaussians_w_tpu.train_step import TrainState
 
 from relightable3dgaussians_w_torch import convert, renderer, synthetic, viewer
+from relightable3dgaussians_w_torch.cli import tune
 from relightable3dgaussians_w_torch.config import Config
+from relightable3dgaussians_w_torch.models import light_cubemap
 from relightable3dgaussians_w_torch.models.nets import MLPNet
 from relightable3dgaussians_w_torch.ops import rasterize as trasterize
 
@@ -108,7 +110,7 @@ def test_json_frame_bytes_match_jax_viewer():
     p, s = ge._synthetic_scene(n=300, n_sky=40)
     jm = JMLPNet()
     key = jax.random.PRNGKey(0)
-    mlp_params = init_mlp(key, jm)
+    mlp_params = jax.jit(lambda k: init_mlp(k, jm))(key)   # flax's init op by op takes ~4 s
     emb = init_embeddings(jax.random.fold_in(key, 1), 2)
 
     jhost = _Host()
@@ -236,22 +238,27 @@ def test_entry_points_run_on_cuda_by_default():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         trasterize.rasterize(p.xyz, torch.exp(p.scaling), p.rotation, torch.sigmoid(p.opacity),
                              torch.ones(24, 3), torch.zeros(3), cam, rcfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        light_cubemap.load_hdr_cubemap("envmap.hdr")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tune.objective(["scene"], {}, 1, "out")
 
 
 def test_import_hygiene():
     """Every module of the port, chip_smoke and compositor_ab import no JAX,
-    flax or JAX package module, and import without nvcc or a GPU."""
+    flax, optax or JAX package module, and import without nvcc or a GPU."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import relightable3dgaussians_w_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke, compositor_ab\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0].startswith(('jax', 'flax'))\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0].startswith(('jax', 'flax', 'optax'))\n"
         "             or k.startswith('relightable3dgaussians_w_tpu'))\n"
         "assert not bad, bad\n"
         "for m in ('ops.cuda.tile_composite', 'ops.cuda.segment_sum', 'train_step',\n"
-        "          'utils.losses'):\n"
+        "          'utils.losses', 'pretrain', 'ops.bsdf', 'models.light_cubemap', 'utils.hdr',\n"
+        "          'cli.convert', 'cli.tune'):\n"
         "    assert 'relightable3dgaussians_w_torch.' + m in names, m\n"
         "print(len(names))\n"
     )
