@@ -117,12 +117,39 @@ Gaussians, random MLP weights from a seed), then:
             times; a seeded 256x512 sky (`smooth_sky`) written as Radiance .hdr, loaded
             into a cubemap and prefiltered by `build_mips` at res 512 on the
             card (timed), card against CPU at res 64 (1e-5 relative); and
-            `shade_cubemap` of 1.01M points (timed).
+            `shade_cubemap` of 1.01M points (timed);
+14. parallel: (a) after the train phase, tile-parallel rendering on cuda:0
+            in this process with 2 and 5 bands of tile rows (grid_y = 50): image,
+            alpha and radii bitwise equal to the single-device `rasterize` at
+            C = 3 (the served frame) and C = 13 (the training step's leaf
+            inputs), the gradients of means, colors, opacities and the mean2d
+            probe within 5e-3 (each band's entry budget sized to hold the
+            densest band); (b) NCCL at one rank in this process (tcp on
+            127.0.0.1, destroyed after): the gauss-sharded render with D = 1
+            bitwise equal to `rasterize`, and the data-parallel step on a 1 x 1
+            mesh against `train_step` on the same inputs; then, after the
+            library phase with this process's device memory freed, (c) 2 gloo
+            ranks sharing cuda:0 (this script with `--rank gauss2`): the
+            gauss-sharded render with D = 2 at full width (bitwise, zero
+            overflow, gradients within 5e-3) and the data = 2 step's first
+            per-image losses against the single-device forward losses (1e-5
+            relative); (d) 4 gloo ranks sharing cuda:0 (`--rank cli`), each
+            `cli.train.main` with runtime.data_parallel=2
+            runtime.gauss_shards=2, the coordinator flags and
+            --dist-backend=gloo on the trainer phase's dataset: 24 iterations
+            (densify from 8 every 12, opacity reset at 20, evaluation and save
+            at 24), then a resume of 8 from the checkpoint: rank 0 alone writes,
+            the evaluation's train_psnr finite, every overflow healed at once,
+            the resumed step 24; each rank's kernel launches (the kernel table's
+            "parallel" path), peak memory and ms per DP step, labelled as ranks
+            sharing one card over gloo. Multi-rank NCCL and scaling are not
+            measured: the machine has one card.
 
 Depth cuts: the trainer phase runs 60 of the default 40,000 iterations, the
 eval phase EVAL_ITERS = 30 and RELIT_STEPS = 8 of the relighting CLI's 30
 frames, the pretrain phase PRETRAIN_EPOCHS = 5 of the default 100 autoencoder
-epochs and PRETRAIN_ITERS = 20 trainer iterations; no width is cut.
+epochs and PRETRAIN_ITERS = 20 trainer iterations, the parallel phase 24 + 8
+trainer iterations with runtime.pool_headroom=2 (of 8); no width is cut.
 
 Each phase prints one JSON line, with the card's nvidia-smi name and power
 limit under "card". The last lines are the kernel table, the
@@ -136,6 +163,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import datetime
 import json
 import os
 import shutil
@@ -149,6 +177,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from torch.func import functional_call
 
@@ -171,6 +200,11 @@ from relightable3dgaussians_w_torch.ops.cuda import build
 from relightable3dgaussians_w_torch.ops.cuda import expand as expand_kernel
 from relightable3dgaussians_w_torch.ops.cuda import segment_sum as segment_sum_kernel
 from relightable3dgaussians_w_torch.ops.cuda import tile_composite as composite_kernel
+from relightable3dgaussians_w_torch.parallel import collectives as C
+from relightable3dgaussians_w_torch.parallel import data_parallel as DP
+from relightable3dgaussians_w_torch.parallel import gauss_shard as GS
+from relightable3dgaussians_w_torch.parallel import tile_parallel as TP
+from relightable3dgaussians_w_torch.parallel.mesh import make_mesh
 from relightable3dgaussians_w_torch.renderer import compute_colors, render, render_rgb
 from relightable3dgaussians_w_torch.trainer import size_entry_budget
 from relightable3dgaussians_w_torch.utils.hdr import write_hdr
@@ -1918,6 +1952,422 @@ def library_phase(pts, dev):
     return rec
 
 
+# ------------------------------------------------------------------ parallel
+
+PARALLEL_BANDS = (2, 5)                 # tile-parallel bands over grid_y = 50
+PARALLEL_ITERS, PARALLEL_RESUME_ITERS = 24, 8
+PARALLEL_SCHEDULE = ["optimizer.densify_from_iter=8", "optimizer.densification_interval=12",
+                     "optimizer.opacity_reset_interval=20", "runtime.pool_headroom=2"]
+PARALLEL_DIR = WORK_DIR / "parallel"
+RANK_TIMEOUT_S = 600                    # a rank group's wait; every rank is killed after it
+RANK_DEVICE = "cuda:0"                  # every rank of (c) and (d) shares the one card
+GRAD_TOL = 5e-3
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def grad_errs(got, want):
+    return [rel_err(g, w) for g, w in zip(got, want)]
+
+
+def render_grads(fn, leaves, weights):
+    """Image, alpha, radii and the gradients of sum(image * w_img + alpha *
+    w_alpha) with respect to `leaves` (means, colors, opacities, probe) from
+    `fn(xyz, colors, op, probe) -> (image, aux)`."""
+    args = [x.detach().clone().requires_grad_(True) for x in leaves]
+    img, aux = fn(*args)
+    loss = (img * weights[0]).sum() + (aux.alpha * weights[1]).sum()
+    grads = torch.autograd.grad(loss, args)
+    return img.detach(), aux.alpha.detach(), aux.radii, [g.detach() for g in grads], aux
+
+
+def band_rcfg(host, cam, k):
+    """host.rcfg with an entry budget whose k-th part holds the densest of k
+    bands of tile rows (a band gets max_dup / k, `tile_parallel.band_config`)."""
+    p, s = host.state.gaussians, host.state.gauss_state
+    rcfg = host.rcfg
+    with torch.no_grad():
+        pre = preprocess.preprocess(G.get_xyz(p, s), G.get_scaling(p), G.get_rotation(p),
+                                    cam.viewmat, cam.projmat, cam.tan_fovx, cam.tan_fovy, RES,
+                                    RES, 16, active=s.alive, opacities=G.get_opacity(p, s)[:, 0],
+                                    skip_alpha=rcfg.skip_alpha)
+        gy = rcfg.grid_y // k
+        need = max(int(TP._band_pre(pre, b * gy, gy, 16).tiles_touched.sum()) for b in range(k))
+    return rcfg._replace(max_dup=max(rcfg.max_dup, ((int(need * k * 1.05) + 4095) // 4096) * 4096))
+
+
+def tile_parallel_check(host, ts, dev):
+    """(a) Tile-parallel bands on cuda:0 in this process: the image, alpha and
+    radii bitwise equal to the single-device `rasterize` at C = 3 (the served
+    frame) and C = 13 (the training step's leaf inputs), and the gradients of
+    means, colors, opacities and the mean2d probe within GRAD_TOL."""
+    rcfg, alive = host.rcfg, host.state.gauss_state.alive
+    out = {}
+    with torch.no_grad():
+        cam, xyz, scl, quat, op, rgb = frame_inputs(host, 0.0, dev)
+        draws = TS.make_draws(torch.Generator(device=dev).manual_seed(0), ts.mlp, ts.cfg)
+        inp, _ = TS.make_leaf_inputs(ts.state.params, ts.state.gauss_state, ts.mlp, ts.cam, 0,
+                                     draws, ts.cfg)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for C, colors, camera, opac in ((3, rgb, cam, op), (13, inp.colors, ts.cam, inp.opacity[:, 0])):
+        bg = torch.rand(C, generator=gen, device=dev)
+        weights = (torch.randn((RES, RES, C), generator=gen, device=dev),
+                   torch.randn((RES, RES), generator=gen, device=dev))
+        probe = torch.zeros((xyz.shape[0], 2), device=dev)
+
+        def single(x, c, o, pr):
+            return rasterize.rasterize(x, scl, quat, o, c, bg, camera, rcfg, active=alive,
+                                       device=dev, mean2d_probe=pr)
+
+        ref = render_grads(single, (xyz, colors, opac, probe), weights)
+        if int(ref[4].overflow) != 0:
+            raise AssertionError(f"parallel (a): single-device overflow at C = {C}")
+        ms_single = median_ms(lambda: single(xyz, colors, opac, None), 5)
+        for k in PARALLEL_BANDS:
+            fn, kcfg = TP.make_tile_parallel_raster_fn([dev] * k), band_rcfg(host, camera, k)
+
+            def banded(x, c, o, pr, fn=fn, kcfg=kcfg):
+                return fn(x, scl, quat, o, c, bg, camera, kcfg, mean2d_probe=pr, active=alive)
+
+            got = render_grads(banded, (xyz, colors, opac, probe), weights)
+            for name, a, b in (("image", got[0], ref[0]), ("alpha", got[1], ref[1]),
+                               ("radii", got[2], ref[2])):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"parallel (a): {k} bands, C = {C}: {name} differs")
+            errs = grad_errs(got[3], ref[3])
+            if not max(errs) < GRAD_TOL:
+                raise AssertionError(f"parallel (a): {k} bands, C = {C}: gradient errors {errs}")
+            out[f"c{C}_bands{k}"] = {
+                "image_alpha_radii": "bitwise equal", "overflow": int(got[4].overflow),
+                "max_dup": kcfg.max_dup, "band_max_dup": TP.band_config(kcfg, k).max_dup,
+                "grad_rel_err": dict(zip(("means", "colors", "opacities", "probe"), errs)),
+                "forward_ms": median_ms(lambda: banded(xyz, colors, opac, None), 5),
+                "single_forward_ms": ms_single}
+    return out
+
+
+def nccl_one_rank_check(host, ts, dev):
+    """(b) NCCL at one rank in this process (tcp://127.0.0.1): the gauss-sharded
+    render with D = 1 bitwise equal to `rasterize`, and the DP step on a 1 x 1
+    mesh against `train_step` on the same inputs; the group is destroyed after."""
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    try:
+        alive_check = torch.ones(1, device=dev)
+        dist.all_reduce(alive_check)
+        dist.barrier()
+        with torch.no_grad():
+            cam, xyz, scl, quat, op, rgb = frame_inputs(host, 0.0, dev)
+            ref, ref_aux = rasterize.rasterize(xyz, scl, quat, op, rgb, host.bg_color, cam,
+                                               host.rcfg, active=host.state.gauss_state.alive,
+                                               device=dev)
+            img, aux = GS.rasterize_gauss_sharded(xyz, scl, quat, op, rgb, host.bg_color, cam,
+                                                  host.rcfg, dist.group.WORLD,
+                                                  active=host.state.gauss_state.alive)
+        if not (torch.equal(img, ref) and torch.equal(aux.alpha, ref_aux.alpha)
+                and int(aux.overflow) == 0):
+            raise AssertionError("parallel (b): the D = 1 gauss-sharded render differs")
+
+        mesh = make_mesh(1, 1, dev)
+        draws = TS.make_draws(torch.Generator(device=dev).manual_seed(0), ts.mlp, ts.cfg)
+        c = ts.cam
+        batch = DP.CameraBatch(c.viewmat[None], c.projmat[None], c.campos[None],
+                               c.tan_fovx[None], c.tan_fovy[None], ts.gt[None], ts.ones[None],
+                               ts.ones[None], torch.zeros(1, dtype=torch.int64, device=dev))
+        new_dp, m = DP.make_dp_train_step(ts.mlp, ts.cfg, ts.rcfg, mesh)(ts.state, batch, [draws],
+                                                                         ts.bg)
+        new_ts, aux = TS.train_step(ts.state, *ts.args(draws), device=dev)
+        loss_err = abs(float(m.loss) - float(aux.loss)) / abs(float(aux.loss))
+        errs = {name: rel_err(a, b) for name, a, b in zip(
+            [f"leaf_{i}" for i in range(len(TS.tree_leaves(new_ts.params)))],
+            TS.tree_leaves(new_dp.params), TS.tree_leaves(new_ts.params))}
+        worst = max(errs.values())
+        if not (loss_err < 1e-5 and worst < GRAD_TOL and int(new_dp.step) == int(new_ts.step)):
+            raise AssertionError(f"parallel (b): DP step vs train_step: loss {loss_err}, "
+                                 f"params {worst}")
+        return {"backend": dist.get_backend(), "ranks": 1,
+                "gauss_sharded_d1": "bitwise equal to rasterize",
+                "dp_step_1x1": {"loss_rel_err": loss_err, "param_max_rel_err": worst,
+                                "bitwise_params": all(torch.equal(a, b) for a, b in zip(
+                                    TS.tree_leaves(new_dp.params),
+                                    TS.tree_leaves(new_ts.params)))}}
+    finally:
+        dist.destroy_process_group()
+
+
+def run_rank_group(mode, world, extra, label):
+    """`world` processes of this script in rank mode `mode`, each writing its
+    JSON record under PARALLEL_DIR; all killed when one fails or the wait runs
+    out. Returns the records in rank order."""
+    PARALLEL_DIR.mkdir(parents=True, exist_ok=True)
+    port = free_port()
+    outs = [PARALLEL_DIR / f"{mode}_rank{r}.json" for r in range(world)]
+    for o in outs:
+        o.unlink(missing_ok=True)
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--rank", mode,
+                               str(r), str(world), str(port), str(outs[r]), *extra],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=RANK_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"parallel {label}: rank {r} exited {p.returncode}:\n"
+                                 f"{log[-3000:]}")
+    return [json.loads(o.read_text()) for o in outs]
+
+
+def rank_gauss2(rank, world, port, dev):
+    """(c) One of 2 gloo ranks sharing cuda:0: the full-width gauss-sharded
+    render (D = 2) against the single-device render, then the data = 2 DP
+    step's per-image losses against the single-device forward losses."""
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    with torch.no_grad():
+        host, cam0, _ = build_host(dev)
+    alive = host.state.gauss_state.alive
+    rec = {}
+    with torch.no_grad():
+        cam, xyz, scl, quat, op, rgb = frame_inputs(host, 0.0, dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    weights = (torch.randn((RES, RES, 3), generator=gen, device=dev),
+               torch.randn((RES, RES), generator=gen, device=dev))
+    probe = torch.zeros((xyz.shape[0], 2), device=dev)
+
+    def single(x, c, o, pr):
+        return rasterize.rasterize(x, scl, quat, o, c, host.bg_color, cam, host.rcfg,
+                                   active=alive, device=dev, mean2d_probe=pr)
+
+    ref = render_grads(single, (xyz, rgb, op, probe), weights)
+    n = xyz.shape[0] // world
+    sl = slice(rank * n, (rank + 1) * n)
+    loc = [x[sl] for x in (xyz, scl, quat, op, rgb, probe)]
+    kcfg = band_rcfg(host, cam, world)
+
+    def sharded(x, c, o, pr):
+        return GS.rasterize_gauss_sharded(x, loc[1], loc[2], o, c, host.bg_color, cam, kcfg,
+                                          dist.group.WORLD, mean2d_probe=pr, active=alive[sl])
+
+    # Every rank's loss reads the full image: its weights are divided by D (the
+    # ranks' losses sum to the single-device loss; exact for D = 2).
+    reset_launches()
+    got = render_grads(sharded, (loc[0], loc[4], loc[3], loc[5]), [w / world for w in weights])
+    if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+            and torch.equal(got[2], ref[2]) and int(got[4].overflow) == 0):
+        raise AssertionError("parallel (c): the D = 2 gauss-sharded render differs")
+    errs = grad_errs(got[3], [g[sl] for g in ref[3]])
+    if not max(errs) < GRAD_TOL:
+        raise AssertionError(f"parallel (c): gauss-sharded gradient errors {errs}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        GS.rasterize_gauss_sharded(loc[0], loc[1], loc[2], loc[3], loc[4], host.bg_color, cam,
+                                   kcfg, dist.group.WORLD, active=alive[sl])
+    torch.cuda.synchronize()
+    rec["gauss_sharded"] = {"image_alpha_radii": "bitwise equal", "overflow": 0,
+                            "max_dup": kcfg.max_dup,
+                            "grad_rel_err": dict(zip(("means", "colors", "opacities", "probe"),
+                                                     errs)),
+                            "forward_ms": (time.perf_counter() - t0) * 1e3}
+
+    # The data = 2 step on two views (yaw -5 and +5, each the port's render
+    # under embedding 1): each rank's first-step loss against the single-device
+    # forward loss of its image with the same draws.
+    ts = TrainSetup(host, cam0, dev)
+    cams = [synthetic.camera(RES, RES, viewmat=yaw(deg), device=dev) for deg in (-5.0, 5.0)]
+    m = ts.cfg.model
+    with torch.no_grad():
+        envl, sky = host.mlp(host.state.embeddings[1][None])
+        gts = [render(host.state.gaussians, host.state.gauss_state, envl[0], sky, c, ts.rcfg,
+                      ts.bg, ts.ones, m.envlight_sh_degree, m.sky_sh_degree, m.specular,
+                      m.fix_sky, debug=False, device=dev).render.contiguous() for c in cams]
+    batch = DP.CameraBatch(*[torch.stack([getattr(c, f) for c in cams]) for f in
+                             ("viewmat", "projmat", "campos", "tan_fovx", "tan_fovy")],
+                           gt_image=torch.stack(gts), sky_mask=torch.stack([ts.ones] * 2),
+                           occluders_mask=torch.stack([ts.ones] * 2),
+                           uid=torch.tensor([0, 1], device=dev))
+    draws_gen = torch.Generator(device=dev).manual_seed(0)
+    draws = [TS.make_draws(draws_gen, ts.mlp, ts.cfg) for _ in range(2)]
+    mesh = make_mesh(2, 1, dev)
+    loss, aux, _, _ = DP.make_per_image_grads(ts.mlp, ts.cfg, ts.rcfg, mesh)(
+        ts.state, batch, draws[rank], ts.bg)
+    with torch.no_grad():
+        want, _ = TS.forward_loss(ts.state.params, ts.state.gauss_state, None, ts.mlp,
+                                  cams[rank], gts[rank], ts.ones, ts.ones, rank, draws[rank],
+                                  ts.state.step, ts.cfg, ts.rcfg, ts.bg, device=dev)
+    loss_err = abs(float(loss) - float(want)) / abs(float(want))
+    if not loss_err < 1e-5:
+        raise AssertionError(f"parallel (c): rank {rank} per-image loss {float(loss)} against "
+                             f"the single-device {float(want)}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new, metrics = DP.make_dp_train_step(ts.mlp, ts.cfg, ts.rcfg, mesh)(ts.state, batch, draws,
+                                                                        ts.bg)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    if not (np.isfinite(float(metrics.loss)) and int(metrics.overflow) == 0
+            and int(new.step) == int(ts.state.step) + 2 and params_finite(new)):
+        raise AssertionError(f"parallel (c): the data = 2 step: {metrics}")
+    rec["dp_data2"] = {"per_image_loss": float(loss), "single_device_loss": float(want),
+                       "loss_rel_err": loss_err, "step_ms": step_ms,
+                       "mean_loss": float(metrics.loss)}
+    dist.destroy_process_group()
+    return rec
+
+
+def rank_cli(rank, world, port, dev):
+    """(d) One of 4 gloo ranks sharing cuda:0 through `cli.train.main`: data 2 x
+    gauss 2 on the trainer phase's dataset, PARALLEL_ITERS iterations with a
+    save, then a resume of PARALLEL_RESUME_ITERS from the checkpoint. Times
+    every DP step (host clock after a device sync) and keeps its overflow."""
+    from relightable3dgaussians_w_torch.trainer import Relightable3DGWTrainer as Trainer
+
+    out = PARALLEL_DIR / "out"
+    argv = [f"dataset.source_path={SCENE_DIR}", f"dataset.model_path={out}", *PARALLEL_SCHEDULE,
+            "runtime.max_dup=0", "runtime.data_parallel=2", "runtime.gauss_shards=2",
+            f"runtime.coordinator_address=127.0.0.1:{port}", f"runtime.num_processes={world}",
+            f"runtime.process_id={rank}", "--dist-backend=gloo", f"--device={dev.type}"]
+    inner, steps, coll_ms = Trainer._dp_train_step, [], [0.0]
+    gather, all_to_all = C._gather, C._all_to_all
+
+    def timed_collective(fn):
+        """The all-gathers and all-to-alls (host-staged over gloo) with a
+        device sync on each side, their ms summed into coll_ms."""
+        def run(x, group):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(x, group)
+            torch.cuda.synchronize()
+            coll_ms[0] += (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    def timed(self, views):
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), coll_ms[0]
+        state, metrics = inner(self, views)
+        torch.cuda.synchronize()
+        steps.append(((time.perf_counter() - t0) * 1e3, int(metrics.overflow),
+                      float(metrics.loss), coll_ms[0] - c0))
+        return state, metrics
+
+    Trainer._dp_train_step = timed
+    C._gather, C._all_to_all = timed_collective(gather), timed_collective(all_to_all)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    try:
+        tr = cli_train.main(argv + [f"optimizer.iterations={PARALLEL_ITERS}"])
+        train_s = time.perf_counter() - t0
+        n_train = len(steps)
+        tr = cli_train.main(argv + [f"optimizer.iterations={PARALLEL_RESUME_ITERS}",
+                                    f"model.load_iteration={PARALLEL_ITERS}"])
+    finally:
+        Trainer._dp_train_step = inner
+        C._gather, C._all_to_all = gather, all_to_all
+    return {"rank": rank, "collective_ms": [s[3] for s in steps], "device": str(tr.device), "is_main": tr.is_main,
+            "mesh_cell": [tr.mesh.d, tr.mesh.g], "launches": read_launches(),
+            "peak_memory_mb": torch.cuda.max_memory_allocated(dev) / 2**20,
+            "step_ms": [s[0] for s in steps], "overflow": [s[1] for s in steps],
+            "losses": [s[2] for s in steps], "train_steps": n_train,
+            "train_call_s": train_s, "total_s": time.perf_counter() - t0,
+            "final_step": int(tr.state.step), "final_max_dup": tr.rcfg.max_dup,
+            "host_staged": sorted(C.HOST_STAGED)}
+
+
+def rank_main(argv) -> int:
+    """`chip_smoke.py --rank <mode> <rank> <world> <port> <out.json>`: one rank
+    of a parallel-phase group on cuda:0."""
+    mode, rank, world, port, out = argv[0], int(argv[1]), int(argv[2]), int(argv[3]), argv[4]
+    dev = torch.device(RANK_DEVICE)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    rec = {"gauss2": rank_gauss2, "cli": rank_cli}[mode](rank, world, port, dev)
+    if mode == "gauss2":
+        rec["launches"] = read_launches()
+    Path(out).write_text(json.dumps(rec))
+    return 0
+
+
+def parallel_phase_ranks(dev):
+    """(c) and (d): the rank groups, after the parent's device memory is freed.
+    Returns (the (d) ranks' summed launches, record)."""
+    t0 = time.perf_counter()
+    g2 = run_rank_group("gauss2", 2, [], "(c)")
+    g2_s = time.perf_counter() - t0
+    shutil.rmtree(PARALLEL_DIR / "out", ignore_errors=True)
+    t0 = time.perf_counter()
+    ranks = run_rank_group("cli", 4, [], "(d)")
+    cli_s = time.perf_counter() - t0
+
+    out = PARALLEL_DIR / "out"
+    recs = [json.loads(line) for line in open(out / "train_log.jsonl")]
+    events = [r for r in recs if "event" in r]
+    evals = [r for r in recs if "train_psnr" in r]
+    resumed = [r["step"] for r in events if r["event"] == "resume"]
+    if resumed != [PARALLEL_ITERS]:
+        raise AssertionError(f"parallel (d): resumed at {resumed}")
+    if not evals or not all(np.isfinite(r["train_psnr"]) for r in evals):
+        raise AssertionError(f"parallel (d): evaluation {evals}")
+    for rel in (f"point_cloud/iteration_{PARALLEL_ITERS}/point_cloud.ply",
+                f"full_state/iteration_{PARALLEL_ITERS}/state.npz",
+                f"point_cloud/iteration_{PARALLEL_RESUME_ITERS}/point_cloud.ply"):
+        if not (out / rel).exists():
+            raise AssertionError(f"parallel (d): {rel} missing")
+    if [r["is_main"] for r in ranks] != [True, False, False, False]:
+        raise AssertionError("parallel (d): rank 0 is not the only writer")
+    for r in ranks:
+        over = r["overflow"]
+        # Every overflow is healed at once: no two overflowing steps in a row,
+        # and the last step of each leg exact.
+        if (over[r["train_steps"] - 1] or over[-1]
+                or any(a and b for a, b in zip(over, over[1:]))):
+            raise AssertionError(f"parallel (d): rank {r['rank']} overflow {over}")
+        if not np.isfinite(r["losses"]).all():
+            raise AssertionError(f"parallel (d): rank {r['rank']} losses {r['losses']}")
+        if r["final_step"] != PARALLEL_ITERS + PARALLEL_RESUME_ITERS:
+            raise AssertionError(f"parallel (d): rank {r['rank']} ended at {r['final_step']}")
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in KERNELS}
+    missing = [k for k in TRAIN_PATH[1:] if launches[k] < 1]
+    if missing or launches["expand_entries"] + launches["expand_entries_intervals"] < 1:
+        raise AssertionError(f"parallel (d): no launch of {missing or 'A / A-int'}")
+    label = "4 ranks sharing one card over gloo"
+    record = {
+        "gauss_sharded_2_ranks": {"backend": "gloo", "ranks": 2, "cards": 1, "wall_s": g2_s,
+                                  "label": "2 ranks sharing one card over gloo",
+                                  "per_rank": g2},
+        "cli_4_ranks": {
+            "backend": "gloo", "ranks": 4, "cards": 1, "mesh": "data 2 x gauss 2",
+            "label": label, "wall_s": cli_s,
+            "argv_extra": PARALLEL_SCHEDULE + [f"optimizer.iterations={PARALLEL_ITERS}",
+                                               f"then {PARALLEL_RESUME_ITERS} from the "
+                                               "checkpoint"],
+            "resumed_step": resumed[0], "train_psnr": [r["train_psnr"] for r in evals],
+            "events": [{k: r[k] for k in ("iter", "event", "ms") if k in r} for r in events],
+            "per_rank": [{k: r[k] for k in ("rank", "device", "mesh_cell", "launches",
+                                            "peak_memory_mb", "train_call_s", "total_s",
+                                            "final_max_dup", "overflow", "host_staged")}
+                         | {"ms_per_dp_step_median": float(np.median(r["step_ms"][1:])),
+                            "collective_ms_per_step_median":
+                                float(np.median(r["collective_ms"][1:])),
+                            "step_ms": r["step_ms"], "collective_ms": r["collective_ms"]}
+                         for r in ranks]},
+        "host_staged_gloo_ops": sorted({op for r in ranks for op in r["host_staged"]}),
+    }
+    return launches, record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -1956,6 +2406,12 @@ def main() -> int:
     report(record)
     train_launches, record = train_phase(ts, dev)
     report(record)
+    t0 = time.perf_counter()
+    par_a = tile_parallel_check(host, ts, dev)
+    a_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    par_b = nccl_one_rank_check(host, ts, dev)
+    b_s = time.perf_counter() - t0
     del ts
 
     report(intervals_phase(host, dev))
@@ -1970,22 +2426,38 @@ def main() -> int:
     report({**record, "dataset_write_s": pretrain_data_s})
     report(library_phase(fg_points, dev))
 
+    # The parallel phase's rank groups, with this process's device memory freed.
+    del fg_points
+    torch.cuda.empty_cache()
+    parallel_launches, record = parallel_phase_ranks(dev)
+    report({"phase": "parallel", "cards": 1,
+            "tile_parallel": {"backend": "none (one process)", "bands": list(PARALLEL_BANDS),
+                              "device": str(dev), "wall_s": a_s, **par_a},
+            "nccl_one_rank": {**par_b, "wall_s": b_s}, **record,
+            "not_measured": "multi-rank NCCL and scaling: the machine has one card, and NCCL "
+                            "refuses two ranks on one card; no number here is a scaling number",
+            "depth_cuts": [f"{PARALLEL_ITERS} + {PARALLEL_RESUME_ITERS} trainer iterations "
+                           "(of the default 40,000)", "runtime.pool_headroom=2 (of 8)"]})
+
     # Launches on each main path: serving (A, P, B at C = 3), packed serving
     # (A, P, B'), the training step (A, P, B at C = 13, C, D), the trainer with
     # row intervals (A-int, P, B at C = 13, C, D), the evaluation chain (A or
     # A-int, P, B at C = 13, 21 and 51, C, D) and the trainer after
-    # pretraining (A or A-int, P, B at C = 13, C, D).
-    paths = ("serve", "serve_packed", "train", "trainer", "eval", "pretrain")
-    v, q, t, r, e, w = (serve_launches, packed_launches, train_launches, trainer_launches,
-                        eval_launches, pretrain_launches)
-    by_path = {k: (v[k], q[k], t[k], r[k], e[k], w[k]) for k in KERNELS}
-    by_path["composite_forward"] = (v["composite_forward"], q["composite_forward"], 0, 0, 0, 0)
+    # pretraining (A or A-int, P, B at C = 13, C, D) and the 4 ranks of the
+    # parallel phase's train CLI, summed (A or A-int, P, B at C = 13, C, D).
+    paths = ("serve", "serve_packed", "train", "trainer", "eval", "pretrain", "parallel")
+    v, q, t, r, e, w, p = (serve_launches, packed_launches, train_launches, trainer_launches,
+                           eval_launches, pretrain_launches, parallel_launches)
+    by_path = {k: (v[k], q[k], t[k], r[k], e[k], w[k], p[k]) for k in KERNELS}
+    by_path["composite_forward"] = (v["composite_forward"], q["composite_forward"], 0, 0, 0, 0,
+                                    0)
     by_path["composite_forward_c13"] = (0, 0, t["composite_forward"], r["composite_forward"],
-                                        by_c.get(13, 0), w["composite_forward"])
-    by_path["composite_forward_c21"] = (0, 0, 0, 0, by_c.get(21, 0), 0)
-    by_path["composite_forward_c51"] = (0, 0, 0, 0, by_c.get(51, 0), 0)
+                                        by_c.get(13, 0), w["composite_forward"],
+                                        p["composite_forward"])
+    by_path["composite_forward_c21"] = (0, 0, 0, 0, by_c.get(21, 0), 0, 0)
+    by_path["composite_forward_c51"] = (0, 0, 0, 0, by_c.get(51, 0), 0, 0)
     if (set(by_c) - {13, 21, 51} or q["composite_forward"] or t["composite_forward_packed"]
-            or w["composite_forward_packed"]):
+            or w["composite_forward_packed"] or p["composite_forward_packed"]):
         raise AssertionError(f"unexpected compositor launches: eval {by_c}, packed serving "
                              f"{q['composite_forward']}, train {t['composite_forward_packed']}, "
                              f"pretrain {w['composite_forward_packed']}")
@@ -2017,4 +2489,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_main(sys.argv[2:]) if sys.argv[1:2] == ["--rank"] else main())

@@ -12,8 +12,9 @@ Usage:
         dataset.model_path=... model.load_iteration=N [--skip_train] [--skip_test] \\
         [--device=cpu]
 
-One card renders whole frames; the JAX package's tile-parallel multi-device
-render is not ported.
+With several visible cards each frame's tile rows are split over them
+(`make_eval_raster_fn`, `parallel/tile_parallel.py`), a bitwise-equal
+decomposition; one card renders whole frames.
 """
 
 from __future__ import annotations
@@ -67,6 +68,24 @@ def split_args(argv):
     return overrides, flags, device
 
 
+def make_eval_raster_fn(rcfg, device):
+    """Tile-parallel rendering over the visible CUDA devices, with the largest
+    band count up to their number that divides grid_y. None with one device
+    (or the CPU), or when no count above 1 divides grid_y."""
+    dev = torch.device(device)
+    n = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if n <= 1:
+        return None
+    gy = rcfg.grid_y
+    k = max(k for k in range(1, n + 1) if gy % k == 0)
+    if k <= 1:
+        return None
+    from ..parallel.tile_parallel import make_tile_parallel_raster_fn
+
+    print(f"render: tile-parallel over {k} devices ({gy // k} tile rows each)")
+    return make_tile_parallel_raster_fn([torch.device("cuda", i) for i in range(k)])
+
+
 def load_trainer(overrides, device):
     """The trainer of a config, with `model.load_iteration`'s checkpoint loaded.
     Returns (trainer, iteration)."""
@@ -91,6 +110,7 @@ def render_set(trainer, name: str, iteration: int, views, embeddings):
     for d in dirs.values():
         os.makedirs(d, exist_ok=True)
     cfg, dev = trainer.cfg, trainer.device
+    raster_fn = make_eval_raster_fn(trainer.rcfg, dev)
     p = trainer.state.params
     m = cfg.model
     for i, view in enumerate(views):
@@ -99,7 +119,8 @@ def render_set(trainer, name: str, iteration: int, views, embeddings):
         out = render(p["gaussians"], trainer.state.gauss_state, envl[0], sky_sh,
                      cam.matrices(dev), trainer.rcfg, trainer.bg_color,
                      torch.as_tensor(view["sky_mask"], device=dev), m.envlight_sh_degree,
-                     m.sky_sh_degree, m.specular, m.fix_sky, debug=True, device=dev)
+                     m.sky_sh_degree, m.specular, m.fix_sky, debug=True, device=dev,
+                     raster_fn=raster_fn)
         h, w, nm = cam.height, cam.width, cam.image_name
         img = lambda x: x.cpu().numpy()[:h, :w]
         save = lambda k, a: save_image(os.path.join(dirs[k], nm + ".png"), a)

@@ -3,7 +3,7 @@
 Usage:
     python -m relightable3dgaussians_w_torch.cli.train dataset.source_path=/data/lk2 \\
         dataset.model_path=./output/lk2 [--config=run.yaml] [key=value ...] \\
-        [--device=cpu]
+        [--device=cpu] [--dist-backend=gloo|nccl]
 
 The `key=value` overrides and the YAML file are the JAX package's config tree
 (`config.py`). Training runs on the CUDA card unless `--device=cpu` asks for the
@@ -15,6 +15,16 @@ per-image embeddings from an autoencoder pretrained on `train/rgb`
 1), and `model.init_sh_mlp=true` fits the illumination MLP to the SH priors in
 `train/envmaps_init/*.npy` (seed runtime.seed + 2), before training starts.
 Only the parameters are replaced; Adam's moments and step stay as built.
+`model.load_iteration=N` (-1 = the latest) resumes training from that
+checkpoint of dataset.model_path (with its step and Adam moments when the
+full-state bundle is there).
+
+Several devices: runtime.data_parallel x runtime.gauss_shards ranks, one
+process per device, all running this command. Launch them with `torchrun
+--nproc-per-node=N -m relightable3dgaussians_w_torch.cli.train ...`, or start
+each with runtime.coordinator_address=host:port runtime.num_processes=N
+runtime.process_id=r. The process group uses NCCL on the card and gloo with
+--device=cpu; `--dist-backend=` names another.
 """
 
 from __future__ import annotations
@@ -31,23 +41,30 @@ from ..config import load_config
 def main(argv=None):
     """Parse `argv`, train, and return the trainer."""
     argv = argv if argv is not None else sys.argv[1:]
-    yaml_path, device = None, "cuda"
+    yaml_path, device, backend = None, "cuda", None
     overrides = []
     for a in argv:
         if a.startswith("--config="):
             yaml_path = a.split("=", 1)[1]
         elif a.startswith("--device="):
             device = a.split("=", 1)[1]
+        elif a.startswith("--dist-backend="):
+            backend = a.split("=", 1)[1]
         elif a.startswith("--"):
             raise ValueError(f"unknown option {a}")
         else:
             overrides.append(a)
     cfg = load_config(overrides, yaml_path)
 
+    from ..device import resolve_device
+    from ..parallel import multihost
     from ..pretrain import initialize_embeddings_from_dataset, initialize_sh_mlp
     from ..trainer import Relightable3DGWTrainer
 
-    trainer = Relightable3DGWTrainer(cfg, device=device)
+    # The process group first: a no-op unless the config or the launcher's
+    # environment asks for more than one process.
+    multihost.maybe_initialize(cfg.runtime, resolve_device(device), backend)
+    trainer = Relightable3DGWTrainer(cfg, device=device, dist_backend=backend)
     dev = trainer.device
 
     if cfg.model.init_embeddings:
@@ -67,6 +84,13 @@ def main(argv=None):
                                        trainer.state.params["embeddings"], names, priors)
         trainer.state = trainer.state._replace(
             params=dict(trainer.state.params, mlp=mlp_params))
+
+    if cfg.model.load_iteration:
+        trainer.load_checkpoint(cfg.model.load_iteration)
+        step = int(trainer.state.step)
+        trainer.logger.scalars(0, dict(event="resume", load_iteration=cfg.model.load_iteration,
+                                       step=step))
+        print(f"resumed from {cfg.dataset.model_path} at step {step}")
 
     trainer.train()
     print("\nTraining complete.")

@@ -6,8 +6,7 @@ YAML file configures either trainer. Defaults mirror the reference's
 
 A few runtime fields only steer the TPU package's layout (Pallas chunking,
 tile batching, the split dispatch); they load here and have no effect in the
-port. The options whose code is not ported yet raise `ValueError` naming their
-ROADMAP queue item (`check_ported`) instead of being ignored.
+port. Every other option has its code in the port.
 """
 
 from __future__ import annotations
@@ -172,10 +171,3 @@ def load_config(overrides: list[str] | None = None, yaml_path: str | None = None
 def config_to_dict(cfg: Config) -> dict:
     return dataclasses.asdict(cfg)
 
-
-def check_ported(cfg: Config) -> None:
-    """Raise ValueError for a setting whose code the port does not have yet."""
-    rt = cfg.runtime
-    if rt.data_parallel > 1 or rt.gauss_shards > 1 or rt.coordinator_address:
-        raise ValueError("runtime.data_parallel / gauss_shards / coordinator_address: "
-                         "multi-device training is not yet ported (ROADMAP queue 1 item 5)")

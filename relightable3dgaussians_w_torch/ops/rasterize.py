@@ -26,7 +26,7 @@ from ..device import resolve_device
 from .binning import bin_gaussians
 from .composite import pack_rb
 from .cuda import tile_composite as _composite_kernel
-from .preprocess import preprocess, row_intervals
+from .preprocess import PreprocessOut, preprocess, row_intervals
 from .segment_sum import gather_rows
 
 
@@ -86,7 +86,8 @@ def _assemble_image(tiles_rgb, tiles_tfin, cfg: RasterizerConfig, channels: int)
 
 def rasterize(means3d, scales, quats, opacities, colors, bg,
               cam: CameraMatrices, cfg: RasterizerConfig, active=None,
-              device: str | torch.device = "cuda", mean2d_probe=None):
+              device: str | torch.device = "cuda", mean2d_probe=None,
+              pre: PreprocessOut | None = None):
     """Render depth-sorted alpha-composited Gaussians.
 
     Args:
@@ -102,6 +103,11 @@ def rasterize(means3d, scales, quats, opacities, colors, bg,
         mean2d_probe: optional [N, 2] zeros added to the projected centers
             before the gather; its gradient is the pixel-space dL/dmean2D
             (multiply by (0.5 W, 0.5 H) for the reference's NDC units).
+        pre: optional precomputed PreprocessOut, used in place of the
+            preprocess of means3d, scales and quats (which may then be None):
+            the tile-parallel and gauss-sharded renders pass band-clamped
+            rects and band-local centers (`parallel/`). Gradients flow
+            through its mean2d and conic.
 
     Returns:
         image: [H, W, C]
@@ -116,21 +122,24 @@ def rasterize(means3d, scales, quats, opacities, colors, bg,
             raise ValueError("packed_rgb is a forward-only serving mode: render with "
                              "packed_rgb=False to differentiate")
     dev = resolve_device(device)
-    means3d, scales, quats, opacities, colors, bg = (
-        x.to(dev, torch.float32) for x in (means3d, scales, quats, opacities, colors, bg))
-    cam = CameraMatrices(*[x.to(dev) for x in cam])
-    if active is not None:
-        active = active.to(dev)
+    opacities, colors, bg = (x.to(dev, torch.float32) for x in (opacities, colors, bg))
     if opacities.ndim == 2:
         opacities = opacities[:, 0]
 
     stage = torch.profiler.record_function
-    with stage("rasterize.preprocess"):
-        pre = preprocess(
-            means3d, scales, quats, cam.viewmat, cam.projmat, cam.tan_fovx, cam.tan_fovy,
-            cfg.width, cfg.height, cfg.tile, cfg.scale_modifier, active, opacities,
-            skip_alpha=cfg.skip_alpha,
-        )
+    if pre is None:
+        means3d, scales, quats = (x.to(dev, torch.float32) for x in (means3d, scales, quats))
+        cam = CameraMatrices(*[x.to(dev) for x in cam])
+        if active is not None:
+            active = active.to(dev)
+        with stage("rasterize.preprocess"):
+            pre = preprocess(
+                means3d, scales, quats, cam.viewmat, cam.projmat, cam.tan_fovx, cam.tan_fovy,
+                cfg.width, cfg.height, cfg.tile, cfg.scale_modifier, active, opacities,
+                skip_alpha=cfg.skip_alpha,
+            )
+    else:
+        pre = PreprocessOut(*[x.to(dev) for x in pre])
     with stage("rasterize.binning"):
         intervals = (row_intervals(pre, opacities, cfg.tile, skip_alpha=cfg.skip_alpha)
                      if cfg.row_intervals else None)

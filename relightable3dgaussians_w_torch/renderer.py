@@ -159,7 +159,8 @@ def render_inputs(params: G.GaussianParams, state: G.GaussianState,
 def render_from_inputs(inp: RenderInputs, state: G.GaussianState, cam: CameraMatrices,
                        rcfg: RasterizerConfig, bg_color: torch.Tensor, sky_mask: torch.Tensor,
                        debug: bool = True, mean2d_probe=None,
-                       device: str | torch.device = "cuda") -> RenderOutput:
+                       device: str | torch.device = "cuda", raster_fn=None,
+                       pre=None) -> RenderOutput:
     """Rasterize the prepared leaf inputs (all on `device`) and assemble the AOV
     maps.
 
@@ -167,6 +168,12 @@ def render_from_inputs(inp: RenderInputs, state: G.GaussianState, cam: CameraMat
         bg_color: [3]; sky_mask: [H, W], 1 = not sky (masks the normal maps).
         mean2d_probe: optional [N, 2] zeros whose gradient is the pixel-space
             dL/dmean2D (for densification).
+        raster_fn: optional stand-in for `rasterize` with its (xyz, scales,
+            quats, opacity, colors, bg, cam, rcfg, mean2d_probe=, active=) ->
+            (image, aux) contract: the tile-parallel render
+            (`parallel/tile_parallel.py`) and the gauss-sharded training step
+            (`parallel/data_parallel.py`) come in here.
+        pre: optional precomputed `PreprocessOut` for `rasterize`.
     """
     C = inp.colors.shape[-1]
     bg = torch.cat([bg_color, bg_color, bg_color, bg_color[:1], bg_color])  # rgb diff spec depth normal
@@ -174,9 +181,13 @@ def render_from_inputs(inp: RenderInputs, state: G.GaussianState, cam: CameraMat
         bg = torch.cat([bg, bg_color, bg_color[:1], bg_color[:1], bg_color])
     if bg.shape[0] != C:
         raise ValueError(f"{C} feature channels, but the debug={debug} layout has {bg.shape[0]}")
-    image, aux = rasterize(
-        inp.xyz, inp.scales, inp.quats, inp.opacity, inp.colors, bg, cam, rcfg,
-        active=state.alive, device=device, mean2d_probe=mean2d_probe)
+    if raster_fn is None:
+        image, aux = rasterize(
+            inp.xyz, inp.scales, inp.quats, inp.opacity, inp.colors, bg, cam, rcfg,
+            active=state.alive, device=device, mean2d_probe=mean2d_probe, pre=pre)
+    else:
+        image, aux = raster_fn(inp.xyz, inp.scales, inp.quats, inp.opacity, inp.colors, bg,
+                               cam, rcfg, mean2d_probe=mean2d_probe, active=state.alive)
     alpha = aux.alpha
     depth_map = image[..., 9]
     normal_map = (image[..., 10:13] - 0.5) * 2.0
@@ -214,7 +225,8 @@ def render(params: G.GaussianParams, state: G.GaussianState,
            bg_color: torch.Tensor, sky_mask: torch.Tensor,
            envlight_sh_degree: int = 4, sky_sh_degree: int = 1,
            specular: bool = True, fix_sky: bool = False, debug: bool = True,
-           mean2d_probe=None, device: str | torch.device = "cuda") -> RenderOutput:
+           mean2d_probe=None, device: str | torch.device = "cuda",
+           raster_fn=None) -> RenderOutput:
     """The full relightable forward pass for one camera (every AOV).
 
     Args:
@@ -223,6 +235,7 @@ def render(params: G.GaussianParams, state: G.GaussianState,
         bg_color: [3]; sky_mask: [H, W], 1 = not sky.
         device: where to render; inputs are moved there. "cuda" (the default)
             raises when CUDA is absent.
+        raster_fn: optional stand-in for `rasterize` (`render_from_inputs`).
     """
     dev = resolve_device(device)
     params = G.to_device(params, dev)
@@ -233,4 +246,4 @@ def render(params: G.GaussianParams, state: G.GaussianState,
     inp = render_inputs(params, state, envlight_base, sky_sh, cam, envlight_sh_degree,
                         sky_sh_degree, specular, fix_sky, debug)
     return render_from_inputs(inp, state, cam, rcfg, bg_color, sky_mask, debug=debug,
-                              mean2d_probe=mean2d_probe, device=dev)
+                              mean2d_probe=mean2d_probe, device=dev, raster_fn=raster_fn)

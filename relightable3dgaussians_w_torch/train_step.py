@@ -42,6 +42,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from .config import Config
@@ -199,20 +200,32 @@ def make_leaf_inputs(params, gauss_state: G.GaussianState, mlp: MLPNet, cam: Cam
 def core_loss(inp: RenderInputs, envlight_sh, gauss_state: G.GaussianState, mean2d_probe,
               cam: CameraMatrices, gt_image, sky_mask, occluders_mask, draws: StepDraws,
               step, cfg: Config, rcfg: RasterizerConfig, bg_color,
-              device: str | torch.device = "cuda"):
+              device: str | torch.device = "cuda", raster_fn=None, pool_group=None):
     """Rasterize the leaf inputs and evaluate the loss stack. Returns (loss, aux
-    dict)."""
+    dict).
+
+    raster_fn: optional stand-in for `rasterize` (`render_from_inputs`).
+    pool_group: the process group the pool rows are sharded over, when this
+    runs as one rank of the gauss-sharded step (`parallel/data_parallel.py`,
+    JAX's pool_axis). Every term then has global semantics (the image terms
+    see the gathered full image, the pool-row regularizers sum over the group)
+    and the loss returned is the global loss divided by the group's size, so
+    that the ranks' losses sum to the global one and every gradient, through
+    the collectives' transposes, is the single-device gradient."""
     with torch.profiler.record_function("train_step.render"):
         out = render_from_inputs(inp, gauss_state, cam, rcfg, bg_color, sky_mask, debug=False,
-                                 mean2d_probe=mean2d_probe, device=device)
+                                 mean2d_probe=mean2d_probe, device=device, raster_fn=raster_fn)
     with torch.profiler.record_function("train_step.losses"):
         return _loss_stack(out, inp, envlight_sh, gauss_state, gt_image, sky_mask,
-                           occluders_mask, draws, step, cfg)
+                           occluders_mask, draws, step, cfg, pool_group)
 
 
 def _loss_stack(out, inp: RenderInputs, envlight_sh, gauss_state: G.GaussianState, gt_image,
-                sky_mask, occluders_mask, draws: StepDraws, step, cfg: Config):
+                sky_mask, occluders_mask, draws: StepDraws, step, cfg: Config, pool_group=None):
     o = cfg.optimizer
+    # Each rank of a pool group holds the same global loss: scale every term by
+    # 1 / size so the ranks' losses sum to it once.
+    iw = 1.0 / dist.get_world_size(pool_group) if pool_group is not None else 1.0
 
     # Losses work in the reference's [C, H, W] layout.
     chw = lambda x: x.movedim(-1, 0)
@@ -223,12 +236,12 @@ def _loss_stack(out, inp: RenderInputs, envlight_sh, gauss_state: G.GaussianStat
 
     l1 = LO.l1_loss(image, gt, mask=occ3)
     ssim_v = 1.0 - LO.ssim(image, gt, mask=occ3)
-    loss = l1 * (1 - o.lambda_dssim) + o.lambda_dssim * ssim_v
+    loss = iw * (l1 * (1 - o.lambda_dssim) + o.lambda_dssim * ssim_v)
 
     # Sky-region BRDF suppression: 1 - sky_mask selects the sky.
     diff_c = chw(out.diffuse_color)
     spec_c = chw(out.specular_color)
-    loss = loss + o.lambda_sky_brdf * (
+    loss = loss + iw * o.lambda_sky_brdf * (
         LO.l1_loss(diff_c, torch.zeros_like(diff_c), mask=1 - sky3)
         + LO.l1_loss(spec_c, torch.zeros_like(spec_c), mask=1 - sky3))
 
@@ -236,21 +249,22 @@ def _loss_stack(out, inp: RenderInputs, envlight_sh, gauss_state: G.GaussianStat
         rn = chw(out.normal) * occ3 * sky3
         rs = chw(out.normal_ref) * occ3 * sky3
         ncl = o.lambda_normal * torch.mean(1.0 - torch.sum(rn * rs, dim=0))
-        loss = loss + torch.where(step > o.reg_normal_from_iter, ncl, 0.0)
+        loss = loss + iw * torch.where(step > o.reg_normal_from_iter, ncl, 0.0)
 
     # Environment-light R+ constraint, added unweighted (lambda_envlight only
     # switches it on).
     if o.lambda_envlight > 0:
-        loss = loss + LO.envl_sh_loss(draws.dirs, envlight_sh, cfg.model.envlight_sh_degree)
+        loss = loss + iw * LO.envl_sh_loss(draws.dirs, envlight_sh,
+                                           cfg.model.envlight_sh_degree)
 
     if o.lambda_scale > 0:
-        loss = loss + o.lambda_scale * LO.min_scale_loss(inp.scales, out.radii,
-                                                         gauss_state.is_sky)
+        loss = loss + iw * o.lambda_scale * LO.min_scale_loss(
+            inp.scales, out.radii, gauss_state.is_sky, pool_group=pool_group)
 
     if o.lambda_sky_gauss > 0:
-        dl = o.lambda_sky_gauss * LO.depth_loss_gaussians(out.gauss_depth, gauss_state.is_sky,
-                                                          out.visibility_filter)
-        loss = loss + torch.where(step > o.reg_sky_gauss_depth_from_iter, dl, 0.0)
+        dl = o.lambda_sky_gauss * LO.depth_loss_gaussians(
+            out.gauss_depth, gauss_state.is_sky, out.visibility_filter, pool_group=pool_group)
+        loss = loss + iw * torch.where(step > o.reg_sky_gauss_depth_from_iter, dl, 0.0)
 
     psnr = LO.psnr(image * occ3, gt * occ3)
     aux = dict(l1=l1, psnr=psnr, radii=out.radii, visibility=out.visibility_filter,
@@ -261,12 +275,14 @@ def _loss_stack(out, inp: RenderInputs, envlight_sh, gauss_state: G.GaussianStat
 def forward_loss(params, gauss_state: G.GaussianState, mean2d_probe, mlp: MLPNet,
                  cam: CameraMatrices, gt_image, sky_mask, occluders_mask, cam_uid,
                  draws: StepDraws, step, cfg: Config, rcfg: RasterizerConfig, bg_color,
-                 device: str | torch.device = "cuda"):
-    """The whole loss stack from the parameters. Returns (loss, aux dict)."""
+                 device: str | torch.device = "cuda", raster_fn=None, pool_group=None):
+    """The whole loss stack from the parameters. Returns (loss, aux dict).
+    raster_fn and pool_group as in `core_loss`."""
     with torch.profiler.record_function("train_step.leaf_inputs"):
         inp, envlight_sh = make_leaf_inputs(params, gauss_state, mlp, cam, cam_uid, draws, cfg)
     return core_loss(inp, envlight_sh, gauss_state, mean2d_probe, cam, gt_image, sky_mask,
-                     occluders_mask, draws, step, cfg, rcfg, bg_color, device=device)
+                     occluders_mask, draws, step, cfg, rcfg, bg_color, device=device,
+                     raster_fn=raster_fn, pool_group=pool_group)
 
 
 # ------------------------------------------------------------------ step
@@ -302,15 +318,17 @@ def apply_update(state: TrainState, param_grads, probe_grad, loss, aux, cfg: Con
 
 def loss_and_grads(state: TrainState, cam: CameraMatrices, gt_image, sky_mask, occluders_mask,
                    cam_uid, draws: StepDraws, bg_color, mlp: MLPNet, cfg: Config,
-                   rcfg: RasterizerConfig, device: str | torch.device = "cuda"):
+                   rcfg: RasterizerConfig, device: str | torch.device = "cuda",
+                   raster_fn=None, pool_group=None):
     """(loss, aux, parameter-gradient tree, probe gradient [N, 2]) of one step,
-    with every input already on `device`."""
+    with every input already on `device`; raster_fn and pool_group as in
+    `core_loss` (with a pool group the loss and gradients are this rank's)."""
     params = tree_map(lambda p: p.detach().requires_grad_(True), state.params)
     n = state.gauss_state.alive.shape[0]
     probe = torch.zeros((n, 2), dtype=torch.float32, device=device, requires_grad=True)
     loss, aux = forward_loss(params, state.gauss_state, probe, mlp, cam, gt_image, sky_mask,
                              occluders_mask, cam_uid, draws, state.step, cfg, rcfg, bg_color,
-                             device=device)
+                             device=device, raster_fn=raster_fn, pool_group=pool_group)
     leaves = tree_leaves(params) + [probe]
     with torch.profiler.record_function("train_step.backward"):
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)

@@ -17,6 +17,18 @@ trainer loads what the other wrote:
 
 The JAX trainer re-jits its step functions when the entry budget or the pool
 grows; here a new `RasterizerConfig` (or a bigger pool) is all it takes.
+
+With runtime.data_parallel x runtime.gauss_shards > 1 the trainer is one rank
+of a mesh of processes (`parallel/`, one process per device): every rank runs
+this same schedule with the same seed, takes B = data_parallel cameras a step
+(`parallel/data_parallel.make_dp_train_step`, the schedule's iteration counter
+advancing by B), keeps its gauss shard of the pool, reads the binning overflow
+after a max over all ranks (so every rank heals the budget alike), densifies
+on the pool gathered over its gauss group (the single-device densify, with the
+same generator on every rank, then its own slice again), and leaves file and
+log IO to rank 0: evaluation and checkpoints gather the full state on every
+rank, rank 0 writes, then a barrier.
+
 Random draws come from `torch.Generator`s seeded with `runtime.seed` (one on
 the host for the sky seeding and the initial MLP and embeddings, one on the
 device for the step draws and the split noise); the view order is the JAX
@@ -31,12 +43,13 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from PIL import Image
 from torch.func import functional_call
 
 from . import checkpoint as CK
 from . import train_step as TS
-from .config import Config, check_ported, config_to_dict
+from .config import Config, config_to_dict
 from .data.cameras import Camera, camera_to_json, scene_center
 from .data.ply import read_ply, write_ply
 from .data.readers import load_scene_info
@@ -46,6 +59,10 @@ from .models.nets import MLPNet
 from .ops.knn import knn_dist2
 from .ops.preprocess import preprocess, row_intervals
 from .ops.rasterize import RasterizerConfig
+from .parallel import collectives as PC
+from .parallel import data_parallel as DP
+from .parallel import multihost
+from .parallel.mesh import make_mesh
 from .renderer import render
 from .utils import losses as LO
 from .utils.general import grad_thr_exp_scheduling, sample_points_on_unit_hemisphere
@@ -119,13 +136,52 @@ class _ViewerHost:
         self.state = ServeState(p["gaussians"], trainer.state.gauss_state, p["embeddings"])
 
 
+def pad_views(views, H: int, W: int):
+    """Padded views re-padded to a larger (H, W) canvas (masks 0 outside)."""
+    out = []
+    for v in views:
+        canvas = {}
+        for k, shape in (("image", (H, W, 3)), ("sky_mask", (H, W)), ("occluders_mask", (H, W))):
+            a = np.zeros(shape, np.float32)
+            a[: v[k].shape[0], : v[k].shape[1]] = v[k]
+            canvas[k] = a
+        out.append(dict(v, **canvas))
+    return out
+
+
 class Relightable3DGWTrainer:
-    def __init__(self, cfg: Config, device: str | torch.device = "cuda"):
+    def __init__(self, cfg: Config, device: str | torch.device = "cuda",
+                 dist_backend: str | None = None):
         """Load the scene and build the pool, the nets and the optimizer state
-        on `device` ("cuda" by default; raises when CUDA is absent)."""
-        check_ported(cfg)
+        on `device` ("cuda" by default; raises when CUDA is absent). With a
+        mesh (runtime.data_parallel x runtime.gauss_shards > 1) this process is
+        one rank of it: the process group comes from the config or the
+        launcher's environment (`parallel/multihost.maybe_initialize`, NCCL for
+        CUDA and gloo for the CPU unless `dist_backend` names one) and the rank
+        runs on cuda:(local rank % visible cards)."""
         self.cfg = cfg
-        self.device = dev = resolve_device(device)
+        rt = cfg.runtime
+        self.data_ax, self.gauss_ax = max(rt.data_parallel, 1), max(rt.gauss_shards, 1)
+        n_mesh = self.data_ax * self.gauss_ax
+        dev = resolve_device(device)
+        multihost.maybe_initialize(rt, dev, dist_backend)
+        self.is_main = multihost.is_main()
+        self.multiprocess = multihost.is_multiprocess()
+        if self.multiprocess and n_mesh == 1:
+            raise RuntimeError("multi-process training needs a mesh: set runtime.data_parallel "
+                               "(and optionally runtime.gauss_shards) to span all ranks")
+        self.mesh = None
+        if n_mesh > 1:
+            if not self.multiprocess:
+                raise RuntimeError(
+                    f"mesh data={self.data_ax} x gauss={self.gauss_ax} needs {n_mesh} ranks, "
+                    "one process per device: launch them with torchrun, or set "
+                    "runtime.coordinator_address, num_processes and process_id")
+            dev = multihost.local_device(dev)
+            if dev.type == "cuda":
+                torch.cuda.set_device(dev)
+            self.mesh = make_mesh(self.data_ax, self.gauss_ax, dev)
+        self.device = dev
         if cfg.runtime.detect_anomaly:
             torch.autograd.set_detect_anomaly(True)
         seed = cfg.runtime.seed
@@ -144,6 +200,13 @@ class Relightable3DGWTrainer:
         self.test_cameras = info.test_cameras
         self.cameras_extent = info.nerf_normalization["radius"]
         views, self.H, self.W = pad_cameras(self.train_cameras)
+        if self.gauss_ax > 1:
+            # One band of tile rows per gauss rank: pad the height so grid_y
+            # divides (padded pixels have occluders_mask 0 and drop out of
+            # every loss).
+            quant = 16 * self.gauss_ax
+            self.H = -(-self.H // quant) * quant
+            views = pad_views(views, self.H, self.W)
         self.train_views = [self._to_device(v) for v in views]   # images go over once
         timings["scene_s"] = time.perf_counter() - t0
 
@@ -159,6 +222,7 @@ class Relightable3DGWTrainer:
         n_total = len(pts) + len(sky_pts)
         capacity = cfg.runtime.pool_capacity or int(n_total * cfg.runtime.pool_headroom)
         capacity = max(capacity, int(n_total * 1.25))  # never below what init needs
+        capacity = -(-capacity // self.gauss_ax) * self.gauss_ax   # rows divide over gauss
         params_g, gstate = G.init_from_points(pts, d2, capacity, device=dev)
         params_g, gstate = G.augment_with_sky(params_g, gstate, sky_pts, sky_d2, sky_radius,
                                               sky_center)
@@ -192,14 +256,28 @@ class Relightable3DGWTrainer:
                                      row_intervals=row_iv)
         self.bg_color = torch.tensor([1.0, 1.0, 1.0] if cfg.dataset.white_background
                                      else [0.0, 0.0, 0.0], device=dev)
+        if self.mesh is not None:
+            self.state = DP.shard_train_state(self.state, self.mesh)
+            print(f"mesh: data={self.data_ax} x gauss={self.gauss_ax}, rank "
+                  f"{self.mesh.d * self.gauss_ax + self.mesh.g} on {dev} "
+                  f"({self.data_ax} cameras/step{', pool sharded' if self.gauss_ax > 1 else ''})")
         self.init_report = dict(
             n_fg=len(pts), n_sky=len(sky_pts), capacity=capacity, rect_demand=rect_demand,
             interval_demand=iv_demand, row_intervals=row_iv, max_dup=max_dup, **timings)
 
+        # Log and file IO on rank 0 only; the other ranks log to devnull.
         self.log_path = os.path.join(self.model_path, "train_log.jsonl")
-        self.logger = TrainLogger(self.log_path,
-                                  tb_dir=self.model_path if rt.tensorboard else None)
-        self.profiler = ProfilerWindow(rt.profile_steps, os.path.join(self.model_path, "profile"))
+        self.logger = TrainLogger(self.log_path if self.is_main else os.devnull,
+                                  tb_dir=self.model_path if rt.tensorboard and self.is_main
+                                  else None)
+        self.profiler = ProfilerWindow(rt.profile_steps if self.is_main else "",
+                                       os.path.join(self.model_path, "profile"))
+        if self.is_main:
+            self._write_run_files()
+
+    def _write_run_files(self):
+        """The run's config, the SIBR camera manifest and the legacy cfg_args."""
+        cfg = self.cfg
         with open(os.path.join(self.model_path, "relightable3DG-W_run.yaml"), "w") as f:
             json.dump(config_to_dict(cfg), f, indent=2, default=str)
         # SIBR-viewer camera manifest, so external viewers can load the scene.
@@ -250,18 +328,22 @@ class Relightable3DGWTrainer:
         warm = (0, t0)  # (iter, wall) after the first logged step
         timer = StepTimer()
         viewer = None
-        if cfg.runtime.viewer_port > 0:
+        if cfg.runtime.viewer_port > 0 and self.multiprocess:
+            print("viewer: disabled under multi-process training (a render request on one "
+                  "rank would take it out of step with the others)")
+        elif cfg.runtime.viewer_port > 0:
             viewer = ViewerServer(cfg.runtime.viewer_ip, cfg.runtime.viewer_port,
                                   protocol=cfg.runtime.viewer_protocol,
                                   verify=cfg.dataset.source_path, device=self.device)
             print(f"viewer: listening on {cfg.runtime.viewer_ip}:{viewer.port} "
                   f"({cfg.runtime.viewer_protocol})")
 
+        B = self.data_ax if self.mesh is not None else 1
         prev_overflow = None
         it = 0
         try:
             while it < iterations:
-                prev_it, it = it, it + 1
+                prev_it, it = it, it + B
                 self.profiler.step(it)
                 timer.tic()
 
@@ -275,14 +357,20 @@ class Relightable3DGWTrainer:
                         self._heal_binning_overflow(prev_it, n_over)
                     prev_overflow = None
 
-                if not view_stack:
-                    view_stack = list(range(len(self.train_views)))
-                view = self.train_views[view_stack.pop(rng.randint(len(view_stack)))]
-                draws = TS.make_draws(self.gen, self.mlp, cfg)
-                self.state, aux = TS.train_step(
-                    self.state, view["mats"], view["image_t"], view["sky_t"], view["occ_t"],
-                    view["cam"].uid, draws, self.bg_color, self.mlp, cfg, self.rcfg,
-                    device=self.device)
+                views = []
+                for _ in range(B):
+                    if not view_stack:
+                        view_stack = list(range(len(self.train_views)))
+                    views.append(self.train_views[view_stack.pop(rng.randint(len(view_stack)))])
+                if self.mesh is None:
+                    view = views[0]
+                    draws = TS.make_draws(self.gen, self.mlp, cfg)
+                    self.state, aux = TS.train_step(
+                        self.state, view["mats"], view["image_t"], view["sky_t"], view["occ_t"],
+                        view["cam"].uid, draws, self.bg_color, self.mlp, cfg, self.rcfg,
+                        device=self.device)
+                else:
+                    self.state, aux = self._dp_train_step(views)
                 prev_overflow = aux.overflow
 
                 if viewer is not None:
@@ -306,7 +394,8 @@ class Relightable3DGWTrainer:
                     print(f"[{it}] loss={loss:.5f} psnr={rec['psnr']:.2f} "
                           f"alive={rec['alive']} {rec['iters_per_s']:.2f} it/s")
 
-                if self.logger.tb is not None and self._crossed(log_every * 10, prev_it, it):
+                if (self.logger.tb is not None and not self.multiprocess
+                        and self._crossed(log_every * 10, prev_it, it)):
                     p, alive = self.state.params["gaussians"], self.state.gauss_state.alive
                     for name in ("opacity", "roughness", "metalness"):
                         vals = torch.sigmoid(getattr(p, name)[alive, 0])
@@ -318,8 +407,12 @@ class Relightable3DGWTrainer:
                             and self._crossed(o.densification_interval, prev_it, it)):
                         t_ev = time.perf_counter()
                         sized = it > o.opacity_reset_interval
-                        self.state, report = TS.densify_step(
-                            self.state, grad_threshold, self.cameras_extent, cfg,
+                        # A sharded pool densifies whole: gathered over the
+                        # gauss group, the single-device densify alike on
+                        # every rank (same generator), then this rank's slice.
+                        state = self._full_pool()
+                        state, report = TS.densify_step(
+                            state, grad_threshold, self.cameras_extent, cfg,
                             max_screen_size=20 if sized else None, generator=self.gen)
                         rep = {k: int(v) for k, v in report._asdict().items()}
                         self._event(it, "densify", t_ev, variant="sized" if sized else "plain",
@@ -330,13 +423,14 @@ class Relightable3DGWTrainer:
                             # Grow the pool (params, pool state, Adam moments) so
                             # the next round has room; the missed selections come
                             # back next round from fresh stats.
-                            cap = self.state.gauss_state.alive.shape[0]
-                            new_cap = int(cap * 1.5)
+                            cap = state.gauss_state.alive.shape[0]
+                            new_cap = -(-int(cap * 1.5) // self.gauss_ax) * self.gauss_ax
                             print(f"[{it}] pool overflow: {rep['overflow']} selected "
                                   f"Gaussians not allocated; growing pool {cap} -> {new_cap}")
                             t_ev = time.perf_counter()
-                            self.state = TS.grow_train_state(self.state, new_cap)
+                            state = TS.grow_train_state(state, new_cap)
                             self._event(it, "grow_pool", t_ev, capacity=new_cap)
+                        self._set_full_state(state)
                     if (self._crossed(o.opacity_reset_interval, prev_it, it)
                             or (prev_it < o.densify_from_iter <= it)):
                         t_ev = time.perf_counter()
@@ -390,6 +484,33 @@ class Relightable3DGWTrainer:
                                      max_dup=new_dup))
         self.rcfg = self.rcfg._replace(max_dup=new_dup)
 
+    def _full_pool(self) -> TS.TrainState:
+        """COLLECTIVE under a gauss-sharded mesh: the full state, the pool
+        gathered over this rank's gauss group; else the state itself."""
+        return self.state if self.mesh is None else DP.gather_pool(self.state, self.mesh)
+
+    def _set_full_state(self, state: TS.TrainState):
+        """Take a full state: this rank's shard of it under a mesh."""
+        self.state = state if self.mesh is None else DP.shard_train_state(state, self.mesh)
+
+    def _dp_train_step(self, views):
+        """One data-parallel step over B = len(views) cameras: every rank draws
+        all B images' StepDraws, in order, so the generators stay in step; data
+        row d takes camera and draws d. The overflow is the max over all ranks,
+        so every rank heals the entry budget alike."""
+        st = lambda k: torch.stack([v[k] for v in views])
+        mats = [v["mats"] for v in views]
+        batch = DP.CameraBatch(
+            *[torch.stack([getattr(m, f) for m in mats]) for f in
+              ("viewmat", "projmat", "campos", "tan_fovx", "tan_fovy")],
+            gt_image=st("image_t"), sky_mask=st("sky_t"), occluders_mask=st("occ_t"),
+            uid=torch.tensor([v["cam"].uid for v in views], device=self.device))
+        draws = [TS.make_draws(self.gen, self.mlp, self.cfg) for _ in views]
+        step = DP.make_dp_train_step(self.mlp, self.cfg, self.rcfg, self.mesh)
+        state, metrics = step(self.state, batch, draws, self.bg_color)
+        PC.all_reduce_(metrics.overflow, None, op=dist.ReduceOp.MAX)
+        return state, metrics
+
     def _render_view(self, view: dict, emb: torch.Tensor):
         """Render one padded view under embedding `emb` [1, D] (no dropout)."""
         p = self.state.params
@@ -407,7 +528,21 @@ class Relightable3DGWTrainer:
         `runtime.eval_halffit_views` of them get a short left-half embedding
         fit from the mean embedding (min(optim_embeddings_test_iters, 60)
         steps) and their right-half masked PSNR is logged as
-        "test_psnr_halffit", the split the evaluation protocol scores."""
+        "test_psnr_halffit", the split the evaluation protocol scores.
+        Under a mesh every rank gathers the full state (a collective) and rank
+        0 alone evaluates it."""
+        if self.mesh is not None:
+            full = self._full_pool()
+            if not self.is_main:
+                return
+            kept, self.state = self.state, full
+            try:
+                return self._evaluate(it, n_train_views)
+            finally:
+                self.state = kept
+        return self._evaluate(it, n_train_views)
+
+    def _evaluate(self, it: int, n_train_views: int):
         emb = self.state.params["embeddings"]
         mean_emb = emb.mean(dim=0, keepdim=True)
         panel_dir = os.path.join(self.model_path, "panels", f"iteration_{it}")
@@ -469,7 +604,13 @@ class Relightable3DGWTrainer:
 
     @torch.no_grad()
     def save(self, iteration: int):
-        state = self.state
+        """Write the checkpoint of `iteration`. Under a mesh every rank gathers
+        the full state (a collective), rank 0 writes, then all meet at a
+        barrier."""
+        state = self._full_pool()
+        if not self.is_main:
+            multihost.sync_processes(f"save_{iteration}")
+            return
         p, s = state.params["gaussians"], state.gauss_state
         idx = torch.nonzero(s.alive).flatten()
         is_sky = s.is_sky[idx].cpu().numpy()
@@ -521,11 +662,13 @@ class Relightable3DGWTrainer:
 
         np.savez(os.path.join(self._iter_dir("full_state", iteration), "state.npz"),
                  **{f"leaf_{i}": a for i, a in enumerate(CK.state_leaves(state))})
+        multihost.sync_processes(f"save_{iteration}")
 
     def load_checkpoint(self, iteration: int = -1):
         """Warm start from a saved iteration (-1 = the latest): the full-state
         bundle when present (Adam moments too), else point_cloud.ply +
-        embeddings + MLP weights with fresh Adam moments."""
+        embeddings + MLP weights with fresh Adam moments. Every rank reads the
+        files (rank 0 wrote them before a barrier) and keeps its shard."""
         if iteration == -1:
             pc_dir = os.path.join(self.model_path, "point_cloud")
             iteration = max(int(d.split("_")[-1]) for d in os.listdir(pc_dir)
@@ -537,7 +680,7 @@ class Relightable3DGWTrainer:
 
         ply = os.path.join(self.model_path, "point_cloud", f"iteration_{iteration}",
                            "point_cloud.ply")
-        capacity = self.state.gauss_state.alive.shape[0]
+        capacity = self.state.gauss_state.alive.shape[0] * (self.gauss_ax if self.mesh else 1)
         params_g, gstate = load_gaussians_ply(ply, capacity=capacity, device=self.device)
         emb = np.load(os.path.join(self.model_path, "checkpoint_embeddings",
                                    f"iteration_{iteration}", "embeddings_weights.npz"))["weight"]
@@ -549,15 +692,15 @@ class Relightable3DGWTrainer:
         zeros = lambda: TS.tree_map(torch.zeros_like, params)
         opt = TS.AdamState(torch.zeros((), dtype=torch.int32, device=self.device), zeros(),
                            zeros())
-        self.state = TS.TrainState(params, gstate, opt,
-                                   torch.tensor(iteration, dtype=torch.int64, device=self.device))
+        self._set_full_state(TS.TrainState(
+            params, gstate, opt, torch.tensor(iteration, dtype=torch.int64, device=self.device)))
         return self.state
 
     def load_full_state(self, iteration: int):
         bundle = np.load(os.path.join(self.model_path, "full_state", f"iteration_{iteration}",
                                       "state.npz"))
         leaves = [bundle[f"leaf_{i}"] for i in range(len(bundle.files))]
-        self.state = CK.state_from_leaves(leaves, self.device)
+        self._set_full_state(CK.state_from_leaves(leaves, self.device))
         return self.state
 
 

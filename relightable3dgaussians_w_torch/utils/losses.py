@@ -108,26 +108,45 @@ def envl_sh_loss(dirs: torch.Tensor, sh_env: torch.Tensor, sh_degree: int) -> to
     return penalize_outside_range(vals.reshape(-1), 0.0, math.inf)
 
 
-def min_scale_loss(scaling: torch.Tensor, radii: torch.Tensor, is_sky: torch.Tensor) -> torch.Tensor:
+def _pool_sum(x: torch.Tensor, pool_group) -> torch.Tensor:
+    """x summed over the ranks of `pool_group` (differentiable), or x."""
+    if pool_group is None:
+        return x
+    from ..parallel import collectives
+
+    if x.requires_grad:
+        return collectives.all_reduce(x, pool_group)
+    return collectives.all_reduce_(x.clone(), pool_group)
+
+
+def min_scale_loss(scaling: torch.Tensor, radii: torch.Tensor, is_sky: torch.Tensor,
+                   pool_group=None) -> torch.Tensor:
     """Mean of the smallest scale over visible foreground Gaussians (the planar
-    prior)."""
+    prior).
+
+    pool_group: the process group the pool rows are sharded over, if they are;
+    the masked mean's numerator and count are then summed over its ranks before
+    the division, so every rank returns the global value."""
     m = (radii > 0) & (~is_sky)
     min_s = torch.amin(scaling, dim=-1)
-    n = torch.sum(m)
-    num = torch.sum(torch.where(m, min_s, 0.0))
+    n = _pool_sum(torch.sum(m), pool_group)
+    num = _pool_sum(torch.sum(torch.where(m, min_s, 0.0)), pool_group)
     return torch.where(n > 0, num / torch.clamp_min(n, 1), 0.0)
 
 
 def depth_loss_gaussians(depths: torch.Tensor, is_sky: torch.Tensor, visible: torch.Tensor,
-                         gamma: float = 0.02) -> torch.Tensor:
+                         gamma: float = 0.02, pool_group=None) -> torch.Tensor:
     """exp(-gamma * (mean depth of visible sky Gaussians - mean depth of visible
-    foreground Gaussians)); the foreground mean is held constant (no gradient)."""
+    foreground Gaussians)); the foreground mean is held constant (no gradient).
+
+    pool_group: as in `min_scale_loss`; the four sums are summed over its ranks
+    before the exp."""
     sky_m = is_sky & visible
     fg_m = (~is_sky) & visible
-    n_sky = torch.sum(sky_m)
-    n_fg = torch.sum(fg_m)
-    s_sky = torch.sum(torch.where(sky_m, depths, 0.0))
-    s_fg = torch.sum(torch.where(fg_m, depths, 0.0))
+    n_sky = _pool_sum(torch.sum(sky_m), pool_group)
+    n_fg = _pool_sum(torch.sum(fg_m), pool_group)
+    s_sky = _pool_sum(torch.sum(torch.where(sky_m, depths, 0.0)), pool_group)
+    s_fg = _pool_sum(torch.sum(torch.where(fg_m, depths, 0.0)).detach(), pool_group)
     avg_sky = s_sky / torch.clamp_min(n_sky, 1)
     avg_fg = (s_fg / torch.clamp_min(n_fg, 1)).detach()
     loss = torch.exp(-gamma * (avg_sky - avg_fg))

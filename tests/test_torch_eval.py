@@ -47,6 +47,9 @@ from relightable3dgaussians_w_torch.utils import envmap
 from test_lpips import synth_weights
 from test_torch_ops import assert_image_close
 from test_trainer_e2e import make_dataset
+import _torch_threads
+
+_torch_threads.share_cores()
 
 W = H = 64
 ATOL = 1e-5

@@ -26,6 +26,9 @@ from relightable3dgaussians_w_torch.ops.cuda import expand as expand_kernel
 
 from test_row_intervals import _aniso_scene, _pre as _jax_pre
 from test_torch_ops import assert_image_close, to_t, torch_cam
+import _torch_threads
+
+_torch_threads.share_cores()
 
 GRAD_TOL = 5e-3
 

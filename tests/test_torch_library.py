@@ -38,6 +38,9 @@ from relightable3dgaussians_w_torch.ops import bsdf, knn
 from relightable3dgaussians_w_torch.utils import hdr
 
 from test_trainer_e2e import make_dataset
+import _torch_threads
+
+_torch_threads.share_cores()
 
 N = 256
 CUBE_RES = 32

@@ -24,6 +24,9 @@ from relightable3dgaussians_w_torch.ops.cuda import expand as expand_kernel
 from relightable3dgaussians_w_torch.ops.cuda import tile_composite as composite_kernel
 
 from test_rasterize import make_scene
+import _torch_threads
+
+_torch_threads.share_cores()
 
 
 def to_t(x):

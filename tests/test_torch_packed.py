@@ -27,6 +27,9 @@ from relightable3dgaussians_w_torch.ops.cuda import tile_composite as composite_
 
 from test_rasterize import make_scene
 from test_torch_ops import assert_image_close, to_t, torch_cam, torch_rcfg
+import _torch_threads
+
+_torch_threads.share_cores()
 
 NAMES = ("means3d", "scales", "quats", "opacities", "colors", "bg")
 HALF_STEP = 8.0 / 4095.0 / 2 + 1e-6

@@ -36,6 +36,9 @@ from relightable3dgaussians_w_torch.cli import train as cli_train
 from relightable3dgaussians_w_torch.models.nets import EmbeddingNet, MLPNet
 
 from test_nerfosr_e2e import make_nerfosr_dataset
+import _torch_threads
+
+_torch_threads.share_cores()
 
 S, CF, LATENT = 16, 8, 4
 N_IMAGES, BATCH, EPOCHS = 6, 4, 2

@@ -28,6 +28,9 @@ from relightable3dgaussians_w_torch.ops import rasterize as trasterize, texture
 from relightable3dgaussians_w_torch.utils import general, graphics, sh
 
 from test_torch_ops import assert_image_close, to_t
+import _torch_threads
+
+_torch_threads.share_cores()
 
 ATOL = 1e-5
 

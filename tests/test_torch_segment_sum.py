@@ -23,6 +23,9 @@ from relightable3dgaussians_w_tpu.ops.pallas import segment_sum as jsegment_sum
 from relightable3dgaussians_w_torch import synthetic
 from relightable3dgaussians_w_torch.ops import binning, preprocess, segment_sum
 from relightable3dgaussians_w_torch.ops.cuda import segment_sum as segment_sum_kernel
+import _torch_threads
+
+_torch_threads.share_cores()
 
 RES = 320          # 20 x 20 tiles
 MAX_DUP = 4096     # a multiple of the JAX kernel's 4096-entry DMA step

@@ -46,6 +46,9 @@ from test_torch_ops import _jax_pre, to_t, torch_cam, torch_rcfg
 from test_torch_render import _jax_scene, _lighting
 import test_train_step
 from test_train_step import build_setup
+import _torch_threads
+
+_torch_threads.share_cores()
 
 GRAD_TOL = 5e-3
 

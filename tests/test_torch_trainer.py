@@ -42,6 +42,9 @@ from relightable3dgaussians_w_torch.models import gaussians as G
 
 from test_torch_ops import assert_image_close, to_t
 from test_trainer_e2e import make_dataset
+import _torch_threads
+
+_torch_threads.share_cores()
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 JRENDER_STATIC = ("envlight_sh_degree", "sky_sh_degree", "specular", "fix_sky", "debug")
@@ -100,10 +103,14 @@ def test_config_matches_jax_and_rejects_unported(scene, tmp_path):
                          "runtime:\n  pool_headroom: 2.0\n")
     assert (config.config_to_dict(config.load_config(over, str(yaml_path)))
             == jconfig.config_to_dict(jconfig.load_config(over, str(yaml_path))))
-    for over, queue in ((["runtime.data_parallel=2"], "queue 1 item 5"),
-                        (["runtime.gauss_shards=2"], "queue 1 item 5"),
-                        (["runtime.coordinator_address=h:1"], "queue 1 item 5")):
-        with pytest.raises(ValueError, match=queue):
+    # The multi-device options are the trainer's now: without a process group
+    # (or the process count and id a rendezvous needs) they fail at once,
+    # before any rendezvous and before the scene loads.
+    for over, err, msg in ((["runtime.data_parallel=2"], RuntimeError, "needs 2 ranks"),
+                           (["runtime.gauss_shards=2"], RuntimeError, "needs 2 ranks"),
+                           (["runtime.coordinator_address=h:1"], ValueError,
+                            "needs runtime.num_processes")):
+        with pytest.raises(err, match=msg):
             cli_train.main([f"dataset.source_path={scene['data']}",
                             f"dataset.model_path={scene['root'] / 'x'}", *over, "--device=cpu"])
     if not torch.cuda.is_available():   # the CLI trains on the card by default

@@ -31,6 +31,9 @@ from relightable3dgaussians_w_torch.config import Config
 from relightable3dgaussians_w_torch.models import light_cubemap
 from relightable3dgaussians_w_torch.models.nets import MLPNet
 from relightable3dgaussians_w_torch.ops import rasterize as trasterize
+import _torch_threads
+
+_torch_threads.share_cores()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -258,7 +261,9 @@ def test_import_hygiene():
         "assert not bad, bad\n"
         "for m in ('ops.cuda.tile_composite', 'ops.cuda.segment_sum', 'train_step',\n"
         "          'utils.losses', 'pretrain', 'ops.bsdf', 'models.light_cubemap', 'utils.hdr',\n"
-        "          'cli.convert', 'cli.tune'):\n"
+        "          'cli.convert', 'cli.tune', 'parallel.collectives', 'parallel.multihost',\n"
+        "          'parallel.mesh', 'parallel.tile_parallel', 'parallel.gauss_shard',\n"
+        "          'parallel.data_parallel'):\n"
         "    assert 'relightable3dgaussians_w_torch.' + m in names, m\n"
         "print(len(names))\n"
     )
