@@ -1,5 +1,6 @@
 """Smoke run of the torch port's serving path, training step, trainer, evaluation,
-pretraining and library modules on one CUDA card.
+pretraining, library and parallel modules, the training self-check and the
+serving demo on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -143,13 +144,29 @@ Gaussians, random MLP weights from a seed), then:
             the resumed step 24; each rank's kernel launches (the kernel table's
             "parallel" path), peak memory and ms per DP step, labelled as ranks
             sharing one card over gloo. Multi-rank NCCL and scaling are not
-            measured: the machine has one card.
+            measured: the machine has one card;
+15. selfcheck: after the library phase, the training self-check
+            (`scripts/selfcheck_train.py`) at its defaults on cuda:0: 1,500
+            iterations at 128x128 from 8 views of its synthetic scene, once
+            through `train_step` and once through the data-parallel step on a
+            1 x 1 mesh (NCCL at one rank, opened and closed by the run), each
+            held to its gates (best PSNR >= 21 dB, gain >= 6 dB, mean of the
+            last 300 iterations' checkpoints >= 20 dB) and to zero overflow,
+            with the trajectory, iterations per second and wall time; then
+            the module's CLI as a subprocess, 200 iterations with the gates at
+            0 (exit 0, its jsonl written);
+16. serve_demo: the serving demo's CLI (`scripts/serve_demo.py`) as a
+            subprocess at its defaults, 1,000,000 Gaussians / 800x800 / 30
+            frames, exact and then --packed: every frame served, zero
+            overflow, its record (steady and device ms per frame) and its
+            served frames' launches of A, P and B, or B' and not B.
 
 Depth cuts: the trainer phase runs 60 of the default 40,000 iterations, the
 eval phase EVAL_ITERS = 30 and RELIT_STEPS = 8 of the relighting CLI's 30
 frames, the pretrain phase PRETRAIN_EPOCHS = 5 of the default 100 autoencoder
 epochs and PRETRAIN_ITERS = 20 trainer iterations, the parallel phase 24 + 8
-trainer iterations with runtime.pool_headroom=2 (of 8); no width is cut.
+trainer iterations with runtime.pool_headroom=2 (of 8); the self-check and the
+serving demo run at their defaults; no width is cut.
 
 Each phase prints one JSON line, with the card's nvidia-smi name and power
 limit under "card". The last lines are the kernel table, the
@@ -168,10 +185,8 @@ import json
 import os
 import shutil
 import socket
-import struct
 import subprocess
 import sys
-import threading
 import time
 from pathlib import Path
 
@@ -189,14 +204,14 @@ from relightable3dgaussians_w_torch.cli import metrics as cli_metrics
 from relightable3dgaussians_w_torch.cli import relit_novel_view as cli_relit
 from relightable3dgaussians_w_torch.cli import render as cli_render
 from relightable3dgaussians_w_torch.cli import train as cli_train
-from relightable3dgaussians_w_torch.config import Config
 from relightable3dgaussians_w_torch.data.ply import write_ply
 from relightable3dgaussians_w_torch.models import gaussians as G
 from relightable3dgaussians_w_torch.models import light_cubemap as cube
-from relightable3dgaussians_w_torch.models.nets import EmbeddingNet, MLPNet, fp32_convs
+from relightable3dgaussians_w_torch.models.nets import EmbeddingNet, fp32_convs
 from relightable3dgaussians_w_torch.ops import (binning, bsdf, composite, knn, preprocess,
                                                 rasterize, segment_sum)
-from relightable3dgaussians_w_torch.ops.cuda import build
+from relightable3dgaussians_w_torch.ops.cuda import KERNEL_COUNTERS as KERNELS
+from relightable3dgaussians_w_torch.ops.cuda import build, launch_counts, reset_launches
 from relightable3dgaussians_w_torch.ops.cuda import expand as expand_kernel
 from relightable3dgaussians_w_torch.ops.cuda import segment_sum as segment_sum_kernel
 from relightable3dgaussians_w_torch.ops.cuda import tile_composite as composite_kernel
@@ -206,11 +221,13 @@ from relightable3dgaussians_w_torch.parallel import gauss_shard as GS
 from relightable3dgaussians_w_torch.parallel import tile_parallel as TP
 from relightable3dgaussians_w_torch.parallel.mesh import make_mesh
 from relightable3dgaussians_w_torch.renderer import compute_colors, render, render_rgb
+from relightable3dgaussians_w_torch.scripts import selfcheck_train, serve_demo
+from relightable3dgaussians_w_torch.scripts.serve_demo import yaw
 from relightable3dgaussians_w_torch.trainer import size_entry_budget
 from relightable3dgaussians_w_torch.utils.hdr import write_hdr
 
 N_GAUSS = 1_000_000
-N_SKY = 10_000
+N_SKY = max(N_GAUSS // 100, 500)   # the serving demo's sky (scripts/serve_demo.py)
 RES = 800
 FRAMES = 8
 TRAIN_STEPS = 6
@@ -286,14 +303,6 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def yaw(deg):
-    a = np.deg2rad(deg)
-    view = np.eye(4, dtype=np.float32)
-    view[0, 0], view[0, 2] = np.cos(a), np.sin(a)
-    view[2, 0], view[2, 2] = -np.sin(a), np.cos(a)
-    return view
-
-
 def median_ms(fn, iters):
     fn()
     torch.cuda.synchronize()
@@ -308,19 +317,25 @@ def median_ms(fn, iters):
     return float(np.median(times))
 
 
-def device_ms(fn, iters):
+def device_ms(fn, iters, attempts=3):
     """Device time per call of `fn`: the kernels, copies and sets its `iters`
     calls put on the card (torch.profiler, CUPTI), summed, over iters. Unlike
     `median_ms` it leaves out the host time a call spends before its first
-    launch, which an event pair around one short call includes."""
+    launch, which an event pair around one short call includes. A profile that
+    caught no device time is taken again; after `attempts` of them it raises,
+    so a time the profiler did not see is never reported as 0."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in device_events(prof)) / 1e3 / iters
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total for e in device_events(prof))
+        if total_us > 0:
+            return total_us / 1e3 / iters
+    raise AssertionError(f"device_ms: {attempts} profiles of {iters} calls caught no device time")
 
 
 def image_errors(got, want):
@@ -335,39 +350,10 @@ def check_image(got, want, what):
     return mx, frac, med
 
 
-class ServingHost:
-    """What the viewer reads from its host: W, H, rcfg, cfg, mlp, state, bg_color."""
-
-    def __init__(self, W, H, rcfg, cfg, mlp, state, bg_color):
-        self.W, self.H, self.rcfg, self.cfg = W, H, rcfg, cfg
-        self.mlp, self.state, self.bg_color = mlp, state, bg_color
-
-
 def build_host(dev):
-    d2 = 0.008 * (10_000 / N_GAUSS) ** (2.0 / 3.0)
-    params, gstate = synthetic.synthetic_scene(n=N_GAUSS, n_sky=N_SKY, d2=d2, device=dev)
-    gen = torch.Generator().manual_seed(0)
-    cfg = Config()
-    mlp = MLPNet(cfg.model.envlight_sh_degree, cfg.model.sky_sh_degree,
-                 cfg.model.embeddings_dim, generator=gen).to(dev).eval()
-    emb = torch.randn(4, cfg.model.embeddings_dim, generator=gen).to(dev)
-    cam0 = synthetic.camera(RES, RES, device=dev)
-    xyz, scl, quat = G.get_xyz(params, gstate), G.get_scaling(params), G.get_rotation(params)
-    opa = G.get_opacity(params, gstate)[:, 0]
-    demand = 0
-    for deg in (-10.0, 0.0, 10.0):
-        cam = synthetic.camera(RES, RES, viewmat=yaw(deg), device=dev)
-        pre = preprocess.preprocess(xyz, scl, quat, cam.viewmat, cam.projmat, cam.tan_fovx,
-                                    cam.tan_fovy, RES, RES, 16, active=gstate.alive,
-                                    opacities=opa, skip_alpha=cfg.runtime.serve_skip_alpha)
-        demand = max(demand, int(pre.tiles_touched.sum()))
-    # Static entry budget sized from the sweep's measured demand x 1.10.
-    max_dup = ((int(demand * 1.10) + 4095) // 4096) * 4096
-    rcfg = rasterize.RasterizerConfig(width=RES, height=RES, max_dup=max_dup,
-                                      skip_alpha=cfg.runtime.serve_skip_alpha)
-    state = viewer.ServeState(params, gstate, emb)
-    host = ServingHost(RES, RES, rcfg, cfg, mlp, state, torch.zeros(3, device=dev))
-    return host, cam0, demand
+    """The serving host of the full-size scene (`scripts/serve_demo.build_host`:
+    N_GAUSS + N_SKY Gaussians at RES x RES, exact frames)."""
+    return serve_demo.build_host(N_GAUSS, RES, device=dev)
 
 
 def frame_inputs(host, deg, dev):
@@ -523,68 +509,13 @@ def stages_phase(host, dev, reps=5):
                                       for e in top}}
 
 
-def _recv(sock, n):
-    out = b""
-    while len(out) < n:
-        chunk = sock.recv(n - len(out))
-        if not chunk:
-            raise ConnectionError("server closed")
-        out += chunk
-    return out
-
-
-def _client(port, fov, frames, result, done):
-    try:
-        with socket.create_connection(("127.0.0.1", port), timeout=300) as sock:
-            for i in range(frames):
-                deg = -10.0 + 20.0 * i / max(frames - 1, 1)
-                req = json.dumps({"viewmat": yaw(deg).tolist(), "fovx": fov, "fovy": fov,
-                                  "width": RES, "height": RES, "train": True,
-                                  "fix_sky": False, "embedding_index": 0}).encode()
-                t0 = time.perf_counter()
-                sock.sendall(struct.pack("<I", len(req)) + req)
-                (ln,) = struct.unpack("<I", _recv(sock, 4))
-                buf = _recv(sock, ln)
-                result.append((time.perf_counter() - t0, buf))
-    except Exception as exc:  # reported by the server loop
-        result.append(exc)
-    finally:
-        done.set()
-
-
 def serve_frames(host, cam0, dev):
-    """FRAMES json requests (yaw -10..10) from a client thread through the port's
-    ViewerServer: the client's [(seconds, frame bytes)] and, per served frame,
-    the kernels' launches, the entry overflow and the entry count."""
-    server = viewer.ViewerServer(port=0, protocol="json", device=dev)
-    fov = 2 * float(np.arctan(float(cam0.tan_fovx)))
-    result, done = [], threading.Event()
-    client = threading.Thread(target=_client, args=(server.port, fov, FRAMES, result, done),
-                              daemon=True)
-    client.start()
-    per_frame = []
-    try:
-        deadline = time.time() + 600
-        while not done.is_set() and time.time() < deadline:
-            before = read_launches()
-            if viewer.handle_viewer_request(server, host):
-                after = read_launches()
-                per_frame.append(dict({k: after[k] - before[k] for k in after},
-                                      overflow=int(server.last_aux.overflow),
-                                      entries=int(server.last_aux.num_entries)))
-            else:
-                time.sleep(0.001)
-        client.join(timeout=60)
-    finally:
-        server.close()
-    errors = [r for r in result if isinstance(r, Exception)]
-    if errors:
-        raise errors[0]
-    if len(result) != FRAMES or len(per_frame) != FRAMES:
-        raise AssertionError(f"served {len(per_frame)} frames, client got {len(result)}")
-    for i, ((_, buf), f) in enumerate(zip(result, per_frame)):
-        if len(buf) != RES * RES * 3:
-            raise AssertionError(f"frame {i}: {len(buf)} bytes")
+    """FRAMES json requests (yaw -10..10) from the serving demo's client through
+    the port's ViewerServer (`scripts/serve_demo.serve_frames`): the client's
+    [(seconds, frame bytes)] and, per served frame, the kernels' launches, the
+    entry overflow (which must be 0) and the entry count."""
+    result, per_frame = serve_demo.serve_frames(host, cam0, FRAMES, train=True)
+    for i, f in enumerate(per_frame):
         if f["overflow"] != 0:
             raise AssertionError(f"frame {i}: entry overflow {f['overflow']}")
     return result, per_frame
@@ -593,7 +524,7 @@ def serve_frames(host, cam0, dev):
 def serve_phase(host, cam0, ref_img, dev):
     reset_launches()
     result, per_frame = serve_frames(host, cam0, dev)
-    launches = read_launches()
+    launches = launch_counts()
     for i, f in enumerate(per_frame):
         if f["expand_entries"] < 1 or f["permute_entries"] < 1 or f["composite_forward"] < 1:
             raise AssertionError(f"frame {i}: kernel launches {f}")
@@ -624,10 +555,11 @@ def serve_packed_phase(host, cam0, exact, exact_record, dev):
     the dequantized colors."""
     cfg = copy.deepcopy(host.cfg)
     cfg.runtime.serve_packed_rgb = True
-    phost = ServingHost(host.W, host.H, host.rcfg, cfg, host.mlp, host.state, host.bg_color)
+    phost = serve_demo.ServingHost(host.W, host.H, host.rcfg, cfg, host.mlp, host.state,
+                                   host.bg_color, host.device)
     reset_launches()
     result, per_frame = serve_frames(phost, cam0, dev)
-    launches = read_launches()
+    launches = launch_counts()
     off_by_one, max_diff = [], 0
     for i, (f, (_, buf), (_, ebuf)) in enumerate(zip(per_frame, result, exact)):
         if f["composite_forward_packed"] < 1 or f["composite_forward"] != 0 \
@@ -990,27 +922,9 @@ def train_kernels_phase(ts, dev):
                           "expand": a_rec, **record}
 
 
-KERNELS = {"expand_entries": (expand_kernel, "launches"),
-           "expand_entries_intervals": (expand_kernel, "interval_launches"),
-           "composite_forward": (composite_kernel, "launches"),
-           "composite_forward_packed": (composite_kernel, "packed_launches"),
-           "composite_backward": (composite_kernel, "backward_launches"),
-           "segment_sum_rows": (segment_sum_kernel, "launches"),
-           "permute_entries": (segment_sum_kernel, "permute_launches")}
-
-
 TRAIN_PATH = ("expand_entries", "composite_forward", "composite_backward", "segment_sum_rows",
               "permute_entries")
 TRAINER_PATH = ("expand_entries_intervals",) + TRAIN_PATH[1:]
-
-
-def read_launches():
-    return {k: getattr(mod, attr) for k, (mod, attr) in KERNELS.items()}
-
-
-def reset_launches():
-    for mod, attr in KERNELS.values():
-        setattr(mod, attr, 0)
 
 
 def params_finite(state):
@@ -1111,7 +1025,7 @@ def train_phase(ts, dev):
     state, losses, times = ts.state, [], []
     reset_launches()
     for i in range(TRAIN_STEPS):
-        before = read_launches()
+        before = launch_counts()
         draws = TS.make_draws(ts.gen, ts.mlp, ts.cfg)
         s_ev, e_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s_ev.record()
@@ -1120,7 +1034,7 @@ def train_phase(ts, dev):
         torch.cuda.synchronize()
         times.append(s_ev.elapsed_time(e_ev))
         losses.append(float(aux.loss))
-        after = read_launches()
+        after = launch_counts()
         missing = [k for k in TRAIN_PATH if after[k] - before[k] < 1]
         if missing:
             raise AssertionError(f"train step {i}: no launch of {missing}")
@@ -1132,7 +1046,7 @@ def train_phase(ts, dev):
             raise AssertionError(f"train step {i}: non-finite parameters")
         if not bool((state.gauss_state.xyz_grad_accum[aux.visibility] > 0).any()):
             raise AssertionError(f"train step {i}: no densification statistic on visible rows")
-    launches = read_launches()
+    launches = launch_counts()
     peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
 
     # Stage breakdown and device busy share of whole steps, back to back.
@@ -1339,7 +1253,7 @@ def trainer_phase(host, dev):
         TS.train_step = recorder.inner
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = read_launches()
+    launches = launch_counts()
     peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
 
     recs = [json.loads(line) for line in open(tr.log_path)]
@@ -1608,7 +1522,7 @@ def eval_phase(dev):
             cli_relit.main(common + [f"--envmap={env_path}", f"--steps={RELIT_STEPS}"])
     finally:
         composite_kernel.composite_forward, rasterize.bin_gaussians = fwd.inner, bins.inner
-    launches = read_launches()
+    launches = launch_counts()
     by_c = dict(fwd.calls)
     if sum(by_c.values()) != launches["composite_forward"]:
         raise AssertionError(f"eval: {launches['composite_forward']} B launches for {by_c} calls")
@@ -1786,7 +1700,7 @@ def pretrain_phase(dev):
             setattr(pretrain, name, t.inner)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = read_launches()
+    launches = launch_counts()
     peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
 
     (load_s, _, images), = timed["_load_resized_images"].calls
@@ -1953,6 +1867,112 @@ def library_phase(pts, dev):
 
 
 # ------------------------------------------------------------------ parallel
+
+# The training self-check at its defaults and gates (scripts/selfcheck_train.py),
+# and the serving demo at its defaults (scripts/serve_demo.py).
+SELFCHECK_ITERS, SELFCHECK_RES, SELFCHECK_VIEWS = 1500, 128, 8
+SELFCHECK_CLI_ITERS = 200               # the CLI's run, gates at 0
+SELFCHECK_DIR = WORK_DIR / "selfcheck"
+DEMO_N, DEMO_RES, DEMO_FRAMES = 1_000_000, 800, 30
+DEMO_DIR = WORK_DIR / "serve_demo"
+MODULE_TIMEOUT_S = 600
+
+
+def run_module(module, args, env=None):
+    """`python -m module args` from the repository root, killed after
+    MODULE_TIMEOUT_S. Returns (exit code, output)."""
+    proc = subprocess.run([sys.executable, "-m", module, *args],
+                          cwd=Path(__file__).resolve().parent,
+                          env=dict(os.environ, **(env or {})), capture_output=True, text=True,
+                          timeout=MODULE_TIMEOUT_S)
+    return proc.returncode, proc.stdout + proc.stderr
+
+
+def selfcheck_phase(dev):
+    """The training self-check on the card at its defaults, once plain and once
+    through the data-parallel step (NCCL at one rank), each held to its gates
+    and to zero overflow; then the module's CLI as a subprocess with the gates
+    at 0 (exit 0, its jsonl written)."""
+    module = "relightable3dgaussians_w_torch.scripts.selfcheck_train"
+    reset_launches()
+    legs, failed = {}, []
+    for dp in (False, True):
+        t0 = time.perf_counter()
+        setup = selfcheck_train.build_selfcheck(SELFCHECK_RES, SELFCHECK_VIEWS, dev,
+                                                torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        backend = []
+        log = lambda msg: backend.append(msg)
+        run = selfcheck_train.run_selfcheck(setup, SELFCHECK_ITERS, dp=dp, log=log)
+        g = selfcheck_train.gates(run.trajectory, SELFCHECK_ITERS)
+        name = "dp" if dp else "plain"
+        legs[name] = {"trajectory": run.trajectory, "first": g.first, "best": g.best,
+                      "gain": g.best - g.first, "tail_mean": g.tail_mean, "gates_ok": g.ok,
+                      "its_per_s": SELFCHECK_ITERS / run.seconds,
+                      "ms_per_iter": run.seconds * 1e3 / SELFCHECK_ITERS,
+                      "loop_s": run.seconds, "build_s": build_s, "overflow": run.overflow,
+                      "alive_end": int(G.num_alive(run.state.gauss_state)),
+                      "log": backend[0] if dp else None}
+        if not g.ok or run.overflow:
+            failed.append(f"{name}: best {g.best:.2f} (>= {g.min_psnr}), gain "
+                          f"{g.best - g.first:.2f} (>= {g.min_gain}), tail mean "
+                          f"{g.tail_mean:.2f} (>= {g.min_tail}), overflow {run.overflow}")
+    launches = launch_counts()
+    record = {"phase": "selfcheck", "iters": SELFCHECK_ITERS, "res": SELFCHECK_RES,
+              "views": SELFCHECK_VIEWS, "legs": legs,
+              "launches": {k: launches[k] for k in TRAIN_PATH}}
+    if failed:
+        emit(record)
+        raise AssertionError("selfcheck gates failed: " + "; ".join(failed))
+    if any(launches[k] < 1 for k in TRAIN_PATH) or launches["composite_forward_packed"] \
+            or launches["expand_entries_intervals"]:
+        raise AssertionError(f"selfcheck: kernel launches {launches}")
+
+    SELFCHECK_DIR.mkdir(parents=True, exist_ok=True)
+    out = SELFCHECK_DIR / "cli.jsonl"
+    t0 = time.perf_counter()
+    rc, log = run_module(module, [str(SELFCHECK_CLI_ITERS), str(SELFCHECK_RES),
+                                  str(SELFCHECK_VIEWS), f"--out={out}"],
+                         env={f"SELFCHECK_MIN_{k}": "0" for k in ("PSNR", "GAIN", "TAIL")})
+    cli_s = time.perf_counter() - t0
+    summary = json.loads(out.read_text().splitlines()[-1]) if rc == 0 else None
+    if rc != 0 or not summary["ok"] or summary["iters"] != SELFCHECK_CLI_ITERS \
+            or not summary["device"].startswith("cuda"):
+        raise AssertionError(f"selfcheck CLI: exit {rc}, summary {summary}:\n{log[-3000:]}")
+    record["cli"] = {"iters": SELFCHECK_CLI_ITERS, "exit": rc, "wall_s": cli_s,
+                     "first": summary["first"], "best": summary["best"],
+                     "its_per_s": summary["its_per_s"]}
+    return launches, record
+
+
+def serve_demo_phase():
+    """The serving demo's CLI as a subprocess at its defaults (DEMO_N Gaussians,
+    DEMO_RES², DEMO_FRAMES frames), exact and then --packed: every frame
+    served, zero overflow, and the served frames' launches (the demo's record)
+    of A, P and B, or of B' and not B when packed."""
+    DEMO_DIR.mkdir(parents=True, exist_ok=True)
+    records, launches = {}, collections.Counter()
+    for mode in ("exact", "packed"):
+        out = DEMO_DIR / f"{mode}.json"
+        t0 = time.perf_counter()
+        rc, log = run_module("relightable3dgaussians_w_torch.scripts.serve_demo",
+                             [str(DEMO_N), str(DEMO_RES), str(DEMO_FRAMES), f"--out={out}"]
+                             + (["--packed"] if mode == "packed" else []))
+        if rc != 0:
+            raise AssertionError(f"serve_demo {mode}: exit {rc}:\n{log[-3000:]}")
+        rec = json.loads(out.read_text())
+        n = rec["launches"]
+        b, b_other = (("composite_forward_packed", "composite_forward") if mode == "packed"
+                      else ("composite_forward", "composite_forward_packed"))
+        if (rec["frames"] != DEMO_FRAMES or rec["max_overflow"] != 0
+                or rec["packed_rgb"] != (mode == "packed") or n[b] < DEMO_FRAMES or n[b_other]
+                or n["expand_entries"] < DEMO_FRAMES or n["permute_entries"] < DEMO_FRAMES):
+            raise AssertionError(f"serve_demo {mode}: record {rec}")
+        records[mode] = dict(rec, process_wall_s=time.perf_counter() - t0)
+        launches.update(n)
+    return dict(launches), {"phase": "serve_demo", **records}
+
 
 PARALLEL_BANDS = (2, 5)                 # tile-parallel bands over grid_y = 50
 PARALLEL_ITERS, PARALLEL_RESUME_ITERS = 24, 8
@@ -2277,7 +2297,7 @@ def rank_cli(rank, world, port, dev):
         Trainer._dp_train_step = inner
         C._gather, C._all_to_all = gather, all_to_all
     return {"rank": rank, "collective_ms": [s[3] for s in steps], "device": str(tr.device), "is_main": tr.is_main,
-            "mesh_cell": [tr.mesh.d, tr.mesh.g], "launches": read_launches(),
+            "mesh_cell": [tr.mesh.d, tr.mesh.g], "launches": launch_counts(),
             "peak_memory_mb": torch.cuda.max_memory_allocated(dev) / 2**20,
             "step_ms": [s[0] for s in steps], "overflow": [s[1] for s in steps],
             "losses": [s[2] for s in steps], "train_steps": n_train,
@@ -2295,7 +2315,7 @@ def rank_main(argv) -> int:
         torch.cuda.set_device(dev)
     rec = {"gauss2": rank_gauss2, "cli": rank_cli}[mode](rank, world, port, dev)
     if mode == "gauss2":
-        rec["launches"] = read_launches()
+        rec["launches"] = launch_counts()
     Path(out).write_text(json.dumps(rec))
     return 0
 
@@ -2425,10 +2445,16 @@ def main() -> int:
     pretrain_launches, record = pretrain_phase(dev)
     report({**record, "dataset_write_s": pretrain_data_s})
     report(library_phase(fg_points, dev))
-
-    # The parallel phase's rank groups, with this process's device memory freed.
     del fg_points
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    selfcheck_launches, record = selfcheck_phase(dev)
+    report({**record, "wall_s": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    demo_launches, record = serve_demo_phase()
+    report(record)
+
+    # The parallel phase's rank groups, with this process's device memory freed.
     parallel_launches, record = parallel_phase_ranks(dev)
     report({"phase": "parallel", "cards": 1,
             "tile_parallel": {"backend": "none (one process)", "bands": list(PARALLEL_BANDS),
@@ -2444,20 +2470,25 @@ def main() -> int:
     # row intervals (A-int, P, B at C = 13, C, D), the evaluation chain (A or
     # A-int, P, B at C = 13, 21 and 51, C, D) and the trainer after
     # pretraining (A or A-int, P, B at C = 13, C, D) and the 4 ranks of the
-    # parallel phase's train CLI, summed (A or A-int, P, B at C = 13, C, D).
-    paths = ("serve", "serve_packed", "train", "trainer", "eval", "pretrain", "parallel")
-    v, q, t, r, e, w, p = (serve_launches, packed_launches, train_launches, trainer_launches,
-                           eval_launches, pretrain_launches, parallel_launches)
-    by_path = {k: (v[k], q[k], t[k], r[k], e[k], w[k], p[k]) for k in KERNELS}
+    # parallel phase's train CLI, summed (A or A-int, P, B at C = 13, C, D), the
+    # self-check's two legs (A, P, B at C = 13, C, D) and the serving demo's
+    # frames, exact and packed (A, P, B at C = 3, B').
+    paths = ("serve", "serve_packed", "train", "trainer", "eval", "pretrain", "parallel",
+             "selfcheck", "serve_demo")
+    v, q, t, r, e, w, p, s, d = (serve_launches, packed_launches, train_launches,
+                                 trainer_launches, eval_launches, pretrain_launches,
+                                 parallel_launches, selfcheck_launches, demo_launches)
+    by_path = {k: (v[k], q[k], t[k], r[k], e[k], w[k], p[k], s[k], d[k]) for k in KERNELS}
     by_path["composite_forward"] = (v["composite_forward"], q["composite_forward"], 0, 0, 0, 0,
-                                    0)
+                                    0, 0, d["composite_forward"])
     by_path["composite_forward_c13"] = (0, 0, t["composite_forward"], r["composite_forward"],
                                         by_c.get(13, 0), w["composite_forward"],
-                                        p["composite_forward"])
-    by_path["composite_forward_c21"] = (0, 0, 0, 0, by_c.get(21, 0), 0, 0)
-    by_path["composite_forward_c51"] = (0, 0, 0, 0, by_c.get(51, 0), 0, 0)
+                                        p["composite_forward"], s["composite_forward"], 0)
+    by_path["composite_forward_c21"] = (0, 0, 0, 0, by_c.get(21, 0), 0, 0, 0, 0)
+    by_path["composite_forward_c51"] = (0, 0, 0, 0, by_c.get(51, 0), 0, 0, 0, 0)
     if (set(by_c) - {13, 21, 51} or q["composite_forward"] or t["composite_forward_packed"]
-            or w["composite_forward_packed"] or p["composite_forward_packed"]):
+            or w["composite_forward_packed"] or p["composite_forward_packed"]
+            or s["composite_forward_packed"]):
         raise AssertionError(f"unexpected compositor launches: eval {by_c}, packed serving "
                              f"{q['composite_forward']}, train {t['composite_forward_packed']}, "
                              f"pretrain {w['composite_forward_packed']}")

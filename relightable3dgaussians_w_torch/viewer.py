@@ -209,6 +209,17 @@ def handle_viewer_request(server: ViewerServer, host) -> bool:
     return served
 
 
+def serve_rcfg(host, W: int, H: int, scale_modifier: float = 1.0) -> RasterizerConfig:
+    """The render settings of a served W x H frame: the host's, with the
+    serving runtime's skip_alpha and packed colors."""
+    return host.rcfg._replace(
+        width=W, height=H, scale_modifier=scale_modifier,
+        skip_alpha=host.cfg.runtime.serve_skip_alpha,
+        packed_rgb=host.cfg.runtime.serve_packed_rgb,
+        # Viewer frames never train; row intervals pay only in fwd+bwd.
+        row_intervals=False)
+
+
 def _serve_frame(server: ViewerServer, host, req: dict):
     dev = server.device
     W = int(req.get("width", host.W))
@@ -230,13 +241,7 @@ def _serve_frame(server: ViewerServer, host, req: dict):
         tan_fovx=f32(np.tan(fovx / 2)),
         tan_fovy=f32(np.tan(fovy / 2)),
     )
-    rcfg = host.rcfg._replace(
-        width=W, height=H,
-        scale_modifier=float(req.get("scaling_modifier", 1.0)),
-        skip_alpha=host.cfg.runtime.serve_skip_alpha,
-        packed_rgb=host.cfg.runtime.serve_packed_rgb,
-        # Viewer frames never train; row intervals pay only in fwd+bwd.
-        row_intervals=False)
+    rcfg = serve_rcfg(host, W, H, float(req.get("scaling_modifier", 1.0)))
     idx = int(req.get("embedding_index", 0))
     model = host.cfg.model
     with torch.inference_mode():

@@ -18,6 +18,7 @@ from relightable3dgaussians_w_torch.ops import binning, composite, preprocess, r
 from relightable3dgaussians_w_torch.ops.cuda import expand as expand_kernel
 from relightable3dgaussians_w_torch.ops.cuda import segment_sum as segment_sum_kernel
 from relightable3dgaussians_w_torch.ops.cuda import tile_composite as composite_kernel
+from relightable3dgaussians_w_torch.scripts import selfcheck_train as SC
 
 pytestmark = pytest.mark.cuda
 
@@ -701,3 +702,16 @@ def test_gauss_sharded_gloo_two_ranks_on_card(dev, tmp_path):
     """Two gloo ranks sharing the card: the gauss-sharded render with D = 2
     bitwise the single-device render's, its gradients within 5e-3."""
     _run_ranks("gloo", 2, tmp_path)
+
+
+def test_selfcheck_learns_on_card(dev):
+    """The training self-check's first 300 iterations at its defaults (128x128,
+    8 views) on the card: the best checkpoint at least 6 dB above the first
+    (the JAX package's CPU run climbs 11.8 dB by iteration 300,
+    SELFCHECK_r02_cpu.jsonl), with no entry overflow."""
+    setup = SC.build_selfcheck(128, 8, dev, torch.Generator(device=dev).manual_seed(0))
+    run = SC.run_selfcheck(setup, 300, log=lambda *_: None)
+    psnrs = [p for _, p in run.trajectory]
+    assert [it for it, _ in run.trajectory] == [1, 100, 200, 300]
+    assert max(psnrs) - psnrs[0] >= 6.0, run.trajectory
+    assert run.overflow == 0 and all(np.isfinite(psnrs))
