@@ -1,6 +1,6 @@
 """Smoke run of the torch port's serving path, training step, trainer, evaluation,
-pretraining, library and parallel modules, the training self-check and the
-serving demo on one CUDA card.
+pretraining, library and parallel modules, the training self-check, the
+serving demo and the measurement scripts on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -159,14 +159,30 @@ Gaussians, random MLP weights from a seed), then:
             subprocess at its defaults, 1,000,000 Gaussians / 800x800 / 30
             frames, exact and then --packed: every frame served, zero
             overflow, its record (steady and device ms per frame) and its
-            served frames' launches of A, P and B, or B' and not B.
+            served frames' launches of A, P and B, or B' and not B;
+17. bench:  (run after the reference phase, before the training phases
+            and any NCCL group of this process) the measurement scripts. In process, `scripts/bench.py`'s `run` at its defaults
+            (1,000,000 Gaussians, 800x800, 10 timed calls) in train mode,
+            train mode with BENCH_ANISO=8 (row intervals on: A-int), and render
+            mode exact, packed (B') and at BENCH_SKIP_ALPHA=0.0625: each with
+            zero overflow, every stage of its pie > 0, the card line and the
+            launches of its kernels (the kernel table's "bench" path); then,
+            outside the count, A, A-int (BENCH_ANISO=8), B at C = 3, C, P and D
+            against their plain versions on the inputs the train case gives
+            them ("at_bench_shapes" in the kernel table); then one subprocess
+            of each CLI, each printing its one JSON line: the bench's overflow
+            probe (200,000 Gaussians, budget 262,144: overflow > 0), the
+            parity probe at its defaults (50,000 Gaussians, 512x512, the card
+            against the plain path on the CPU: ok) and the train-step bench at
+            its defaults (500,000 Gaussians, 800x800: zero overflow).
 
 Depth cuts: the trainer phase runs 60 of the default 40,000 iterations, the
 eval phase EVAL_ITERS = 30 and RELIT_STEPS = 8 of the relighting CLI's 30
 frames, the pretrain phase PRETRAIN_EPOCHS = 5 of the default 100 autoencoder
 epochs and PRETRAIN_ITERS = 20 trainer iterations, the parallel phase 24 + 8
-trainer iterations with runtime.pool_headroom=2 (of 8); the self-check and the
-serving demo run at their defaults; no width is cut.
+trainer iterations with runtime.pool_headroom=2 (of 8); the self-check, the
+serving demo and the measurement scripts run at their defaults; no width is
+cut.
 
 Each phase prints one JSON line, with the card's nvidia-smi name and power
 limit under "card". The last lines are the kernel table, the
@@ -205,6 +221,7 @@ from relightable3dgaussians_w_torch.cli import relit_novel_view as cli_relit
 from relightable3dgaussians_w_torch.cli import render as cli_render
 from relightable3dgaussians_w_torch.cli import train as cli_train
 from relightable3dgaussians_w_torch.data.ply import write_ply
+from relightable3dgaussians_w_torch.device import card_line
 from relightable3dgaussians_w_torch.models import gaussians as G
 from relightable3dgaussians_w_torch.models import light_cubemap as cube
 from relightable3dgaussians_w_torch.models.nets import EmbeddingNet, fp32_convs
@@ -221,10 +238,11 @@ from relightable3dgaussians_w_torch.parallel import gauss_shard as GS
 from relightable3dgaussians_w_torch.parallel import tile_parallel as TP
 from relightable3dgaussians_w_torch.parallel.mesh import make_mesh
 from relightable3dgaussians_w_torch.renderer import compute_colors, render, render_rgb
-from relightable3dgaussians_w_torch.scripts import selfcheck_train, serve_demo
+from relightable3dgaussians_w_torch.scripts import bench, selfcheck_train, serve_demo
 from relightable3dgaussians_w_torch.scripts.serve_demo import yaw
 from relightable3dgaussians_w_torch.trainer import size_entry_budget
 from relightable3dgaussians_w_torch.utils.hdr import write_hdr
+from relightable3dgaussians_w_torch.utils.timing import device_events, device_ms, median_ms
 
 N_GAUSS = 1_000_000
 N_SKY = max(N_GAUSS // 100, 500)   # the serving demo's sky (scripts/serve_demo.py)
@@ -301,41 +319,6 @@ def bound(bytes_, ops):
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
-
-
-def median_ms(fn, iters):
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        torch.cuda.synchronize()
-        times.append(s.elapsed_time(e))
-    return float(np.median(times))
-
-
-def device_ms(fn, iters, attempts=3):
-    """Device time per call of `fn`: the kernels, copies and sets its `iters`
-    calls put on the card (torch.profiler, CUPTI), summed, over iters. Unlike
-    `median_ms` it leaves out the host time a call spends before its first
-    launch, which an event pair around one short call includes. A profile that
-    caught no device time is taken again; after `attempts` of them it raises,
-    so a time the profiler did not see is never reported as 0."""
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(attempts):
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        total_us = sum(e.self_device_time_total for e in device_events(prof))
-        if total_us > 0:
-            return total_us / 1e3 / iters
-    raise AssertionError(f"device_ms: {attempts} profiles of {iters} calls caught no device time")
 
 
 def image_errors(got, want):
@@ -692,30 +675,31 @@ def autograd_node(root, name):
     raise LookupError(f"no {name} node in the autograd graph")
 
 
-def step_inputs(state, cam, gt, sky, occ, uid, mlp, cfg, rcfg, bg, dev):
-    """The kernels' inputs on one training step of `state`, read from the port's
-    own `forward_loss`: the expansion's arguments as the binning passes them,
-    and from the autograd graph the compositor's saved inputs and outputs, the
-    cotangents that reach it and the gather, and the gather's segment layout
-    (the binning's `seg_bounds` and `slot_pos`) with the entry ids it stands for."""
-    draws = TS.make_draws(torch.Generator(device=dev).manual_seed(0), mlp, cfg)
-    params = TS.tree_map(lambda p: p.detach().requires_grad_(True), state.params)
-    n = state.gauss_state.alive.shape[0]
-    probe = torch.zeros((n, 2), device=dev, requires_grad=True)
-    expand_calls, launch = [], expand_kernel.expand_entries
+def recorded_expansions(fn):
+    """(fn()'s result, the (args, kwargs) of every `expand_entries` call it made)."""
+    calls, launch = [], expand_kernel.expand_entries
 
     def recorded(*args, **kwargs):
-        expand_calls.append((args, kwargs))
+        calls.append((args, kwargs))
         return launch(*args, **kwargs)
 
     expand_kernel.expand_entries = recorded
     try:
-        loss, aux = TS.forward_loss(params, state.gauss_state, probe, mlp, cam, gt, sky, occ, uid,
-                                    draws, state.step, cfg, rcfg, bg, device=dev)
+        return fn(), calls
     finally:
         expand_kernel.expand_entries = launch
-    if int(aux["overflow"]) != 0:
-        raise AssertionError(f"entry budget overflow {int(aux['overflow'])} on the training frame")
+
+
+def graph_inputs(forward, leaves, n, what):
+    """The kernels' inputs on one differentiable call `forward() -> (loss,
+    overflow)` over `leaves` of n Gaussians: the expansion's arguments as the
+    binning passes them, and from the autograd graph the compositor's saved
+    inputs and outputs, the cotangents that reach it and the gather, and the
+    gather's segment layout (the binning's `seg_bounds` and `slot_pos`) with
+    the entry ids it stands for."""
+    (loss, overflow), expand_calls = recorded_expansions(forward)
+    if int(overflow) != 0:
+        raise AssertionError(f"entry budget overflow {int(overflow)} on {what}")
     comp = autograd_node(loss.grad_fn, "_CompositeTilesBackward")
     gather = autograd_node(loss.grad_fn, "_GatherRowsBackward")
     feat, tile_start, tile_end, bg, rgb, tfin = (t.detach() for t in comp.saved_tensors)
@@ -723,20 +707,36 @@ def step_inputs(state, cam, gt, sky, occ, uid, mlp, cfg, rcfg, bg, dev):
     got = {}
     comp.register_prehook(lambda g: got.update(g_rgb=g[0], g_tfin=g[1]))
     gather.register_prehook(lambda g: got.update(d_rows=g[0]))
-    torch.autograd.grad(loss, TS.tree_leaves(params) + [probe], allow_unused=True)
+    torch.autograd.grad(loss, leaves, allow_unused=True)
     zero_if_none = lambda g, like: torch.zeros_like(like) if g is None else g.contiguous()
     return dict(expand=expand_calls[0], feat=feat, tile_start=tile_start, tile_end=tile_end,
                 bg=bg, rgb=rgb, tfin=tfin,
-                g_rgb=zero_if_none(got["g_rgb"], rgb),     # the loss reads no T_final
+                g_rgb=zero_if_none(got["g_rgb"], rgb),     # a loss may read no T_final
                 g_tfin=zero_if_none(got["g_tfin"], tfin),
                 d_rows=zero_if_none(got["d_rows"], feat), n=n, entries=int(bounds[-1]),
                 bounds=bounds, order=order,
                 ids=segment_sum.layout_ids(bounds, order, feat.shape[0]))
 
 
+def step_inputs(state, cam, gt, sky, occ, uid, mlp, cfg, rcfg, bg, dev):
+    """The kernels' inputs on one training step of `state` (`graph_inputs` of
+    the port's own `forward_loss`)."""
+    draws = TS.make_draws(torch.Generator(device=dev).manual_seed(0), mlp, cfg)
+    params = TS.tree_map(lambda p: p.detach().requires_grad_(True), state.params)
+    n = state.gauss_state.alive.shape[0]
+    probe = torch.zeros((n, 2), device=dev, requires_grad=True)
+
+    def forward():
+        loss, aux = TS.forward_loss(params, state.gauss_state, probe, mlp, cam, gt, sky, occ,
+                                    uid, draws, state.step, cfg, rcfg, bg, device=dev)
+        return loss, aux["overflow"]
+
+    return graph_inputs(forward, TS.tree_leaves(params) + [probe], n, "the training frame")
+
+
 def hold_step_kernels(x, rcfg, dev):
-    """Kernels B (C = 13), C, P and D on one training step's inputs
-    (`step_inputs`) against their plain versions, with times and bounds:
+    """Kernels B (C = 13 on a training step), C, P and D on one call's inputs
+    (`step_inputs`, `graph_inputs`) against their plain versions, with times and bounds:
     (table rows, record)."""
     feat, ts_, te_, bg, rgb, tfin = (x[k] for k in ("feat", "tile_start", "tile_end", "bg",
                                                     "rgb", "tfin"))
@@ -746,7 +746,7 @@ def hold_step_kernels(x, rcfg, dev):
     T, P = gx * gy, 256
     entries = x["entries"]
 
-    b_row, b_rec, _ = hold_forward((feat, ts_, te_, bg, gx, gy), "composite_forward at C = 13")
+    b_row, b_rec, _ = hold_forward((feat, ts_, te_, bg, gx, gy), f"composite_forward at C = {C}")
     pairs = b_rec["pairs"]
 
     # C: compositor backward
@@ -831,7 +831,7 @@ def hold_step_kernels(x, rcfg, dev):
     d_bound = bound(entries * (F * 4 + 4) + n * F * 4, entries * F)
 
     record = {"gaussians": n, "entries": entries, "slots": D, "pairs": pairs,
-              "composite_forward_c13": b_rec,
+              f"composite_forward_c{C}": b_rec,
               "composite_backward": {"max_rel_err_by_group": c_rel, "bitwise_repeatable": True,
                                      "zero_rows_as_plain": int(zero_p.sum()),
                                      "d_bg_max_abs_err": float((dbg_k - dbg_p).abs().max()),
@@ -845,7 +845,7 @@ def hold_step_kernels(x, rcfg, dev):
                               "index_add_ms": d_lib_ms}}
     cu = "relightable3dgaussians_w_torch/csrc/"
     table = [
-        dict(name="composite_forward_c13", route="cuda", source=cu + "tile_composite.cu",
+        dict(name=f"composite_forward_c{C}", route="cuda", source=cu + "tile_composite.cu",
              replaces="relightable3dgaussians_w_tpu/ops/pallas/tile_composite.py:193", **b_row),
         dict(name="composite_backward", route="cuda", source=cu + "tile_composite.cu",
              replaces="relightable3dgaussians_w_tpu/ops/pallas/tile_composite.py:327",
@@ -938,12 +938,6 @@ STEP_PARTS = ("train_step.to_device", "train_step.leaf_inputs", "train_step.rend
               "train_step.losses", "train_step.backward", "train_step.adam")
 STEP_SUBRANGES = ("rasterize.preprocess", "rasterize.binning", "rasterize.gather",
                   "rasterize.composite", "composite_tiles.backward", "gather_rows.backward")
-
-
-def device_events(prof):
-    """The profile's kernel, copy and set events (not the ranges' device spans)."""
-    return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
 
 
 def stage_table(prof, reps):
@@ -1880,12 +1874,12 @@ MODULE_TIMEOUT_S = 600
 
 def run_module(module, args, env=None):
     """`python -m module args` from the repository root, killed after
-    MODULE_TIMEOUT_S. Returns (exit code, output)."""
+    MODULE_TIMEOUT_S. Returns (exit code, standard output, standard error)."""
     proc = subprocess.run([sys.executable, "-m", module, *args],
                           cwd=Path(__file__).resolve().parent,
                           env=dict(os.environ, **(env or {})), capture_output=True, text=True,
                           timeout=MODULE_TIMEOUT_S)
-    return proc.returncode, proc.stdout + proc.stderr
+    return proc.returncode, proc.stdout, proc.stderr
 
 
 def selfcheck_phase(dev):
@@ -1932,9 +1926,10 @@ def selfcheck_phase(dev):
     SELFCHECK_DIR.mkdir(parents=True, exist_ok=True)
     out = SELFCHECK_DIR / "cli.jsonl"
     t0 = time.perf_counter()
-    rc, log = run_module(module, [str(SELFCHECK_CLI_ITERS), str(SELFCHECK_RES),
-                                  str(SELFCHECK_VIEWS), f"--out={out}"],
-                         env={f"SELFCHECK_MIN_{k}": "0" for k in ("PSNR", "GAIN", "TAIL")})
+    rc, log, err = run_module(module, [str(SELFCHECK_CLI_ITERS), str(SELFCHECK_RES),
+                                       str(SELFCHECK_VIEWS), f"--out={out}"],
+                              env={f"SELFCHECK_MIN_{k}": "0" for k in ("PSNR", "GAIN", "TAIL")})
+    log += err
     cli_s = time.perf_counter() - t0
     summary = json.loads(out.read_text().splitlines()[-1]) if rc == 0 else None
     if rc != 0 or not summary["ok"] or summary["iters"] != SELFCHECK_CLI_ITERS \
@@ -1956,9 +1951,10 @@ def serve_demo_phase():
     for mode in ("exact", "packed"):
         out = DEMO_DIR / f"{mode}.json"
         t0 = time.perf_counter()
-        rc, log = run_module("relightable3dgaussians_w_torch.scripts.serve_demo",
-                             [str(DEMO_N), str(DEMO_RES), str(DEMO_FRAMES), f"--out={out}"]
-                             + (["--packed"] if mode == "packed" else []))
+        rc, log, err = run_module("relightable3dgaussians_w_torch.scripts.serve_demo",
+                                  [str(DEMO_N), str(DEMO_RES), str(DEMO_FRAMES), f"--out={out}"]
+                                  + (["--packed"] if mode == "packed" else []))
+        log += err
         if rc != 0:
             raise AssertionError(f"serve_demo {mode}: exit {rc}:\n{log[-3000:]}")
         rec = json.loads(out.read_text())
@@ -1972,6 +1968,127 @@ def serve_demo_phase():
         records[mode] = dict(rec, process_wall_s=time.perf_counter() - t0)
         launches.update(n)
     return dict(launches), {"phase": "serve_demo", **records}
+
+
+# The measurement scripts (scripts/bench.py, stage_pie.py, parity.py,
+# bench_train_step.py): each bench case's own knobs (the rest at the script's
+# defaults: 1,000,000 Gaussians, 800x800, 10 timed calls) and the kernels it
+# launches (every other kernel stays at 0).
+BENCH_CASES = {"train": {}, "train_aniso8": {"BENCH_ANISO": "8"},
+               "render": {"BENCH_MODE": "render"},
+               "render_packed": {"BENCH_MODE": "render", "BENCH_PACKED": "1"},
+               "render_lod": {"BENCH_MODE": "render", "BENCH_SKIP_ALPHA": "0.0625"}}
+BENCH_TRAIN_KERNELS = ("permute_entries", "composite_forward", "composite_backward",
+                       "segment_sum_rows")
+BENCH_LAUNCHES = {"train": ("expand_entries",) + BENCH_TRAIN_KERNELS,
+                  "train_aniso8": ("expand_entries_intervals",) + BENCH_TRAIN_KERNELS,
+                  "render": ("expand_entries", "permute_entries", "composite_forward"),
+                  "render_packed": ("expand_entries", "permute_entries",
+                                    "composite_forward_packed"),
+                  "render_lod": ("expand_entries", "permute_entries", "composite_forward")}
+BENCH_PROBE = {"BENCH_N": "200000", "BENCH_MAX_DUP": "262144", "BENCH_ITERS": "3"}
+SCRIPTS = "relightable3dgaussians_w_torch.scripts."
+
+
+def bench_env(name):
+    """The BENCH_* knobs of a case, at this script's scene size (the bench's
+    defaults: N_GAUSS Gaussians at RES x RES)."""
+    return {"BENCH_N": str(N_GAUSS), "BENCH_RES": str(RES), **BENCH_CASES[name]}
+
+
+def bench_case(name, smi_line, dev):
+    """One in-process run of `bench.run` with BENCH_CASES[name]: its record,
+    wall seconds and launches, held to zero overflow, every pie stage > 0, the
+    card line, row intervals on exactly in the anisotropic case, and
+    BENCH_LAUNCHES[name]."""
+    before = launch_counts()
+    t0 = time.perf_counter()
+    rec = bench.run(dev, bench_env(name))
+    wall_s = time.perf_counter() - t0
+    now = launch_counts()
+    n = {k: now[k] - before[k] for k in now}
+    x = rec["extra"]
+    pie = x.get("stage_pie_ms", {})
+    want = BENCH_LAUNCHES[name]
+    bad = [what for what, failed in (
+        ("overflow", x["overflow_entries"] != 0),
+        ("stage pie", "stage_pie_error" in x or not pie or min(pie.values()) <= 0),
+        ("card line", x["card"] != smi_line),
+        ("row intervals", x["row_intervals"] != (name == "train_aniso8")),
+        ("launches", any(n[k] < 1 for k in want) or any(n[k] for k in n if k not in want)))
+        if failed]
+    rec = dict(rec, wall_s=wall_s, launches=n)
+    if bad:
+        emit({"phase": "bench", "case": name, **rec})
+        raise AssertionError(f"bench {name}: {', '.join(bad)} wrong")
+    return rec
+
+
+def bench_cli(script, env=None):
+    """`python -m` one of the measurement scripts: (exit code, its standard
+    output's lines, the end of its log)."""
+    rc, out, err = run_module(SCRIPTS + script, [], env=env)
+    return rc, out.splitlines(), (out + err)[-3000:]
+
+
+def bench_phase(dev, smi_line):
+    """The measurement scripts: BENCH_CASES in process through `bench.run`
+    (the launch counts of the bench path); then, outside the count, kernels A,
+    A-int, B (C = 3), C, P and D on the inputs the train case gives them
+    (A-int: BENCH_ANISO=8) against their plain versions with times and bounds;
+    then one subprocess of each CLI, each printing its one JSON line: the
+    bench's overflow probe (BENCH_PROBE: overflow > 0, no crash), the parity
+    probe at its defaults (ok) and the train-step bench at its defaults (zero
+    overflow). Returns (launches, {kernel: row at the bench's shapes},
+    record)."""
+    reset_launches()
+    cases = {name: bench_case(name, smi_line, dev) for name in BENCH_CASES}
+    launches = launch_counts()
+
+    n = N_GAUSS
+    arrs, cam, cfg = bench.build(n, RES, RES, device=dev, env=bench_env("train"))
+    leaves = [a.detach().requires_grad_(True) for a in arrs]
+    bg = torch.zeros(3, device=dev)
+
+    def forward():
+        img, aux = rasterize.rasterize(*leaves, bg, cam, cfg, device=dev)
+        return img.sum() + aux.alpha.sum(), aux.overflow
+
+    x = graph_inputs(forward, leaves, n, "the bench's train call")
+    rows, holds = hold_step_kernels(x, cfg, dev)
+    a_row, holds["expand"] = hold_expansion(x["expand"], "bench train call")
+    del x, leaves
+    arrs8, cam8, cfg8 = bench.build(n, RES, RES, device=dev, env=bench_env("train_aniso8"))
+    with torch.no_grad():
+        _, calls = recorded_expansions(lambda: rasterize.rasterize(*arrs8, bg, cam8, cfg8,
+                                                                   device=dev))
+    ai_row, holds["expand_intervals"] = hold_expansion(calls[0], "bench train call, aniso 8")
+    del arrs8, calls
+    at_bench = dict(zip(("composite_forward", "composite_backward", "segment_sum_rows",
+                         "permute_entries"), rows),
+                    expand_entries=a_row, expand_entries_intervals=ai_row)
+
+    cli = {}
+    rc, lines, log = bench_cli("bench", BENCH_PROBE)
+    probe = json.loads(lines[0]) if rc == 0 and len(lines) == 1 else None
+    if probe is None or probe["extra"]["overflow_entries"] <= 0 \
+            or probe["extra"]["card"] != smi_line:
+        raise AssertionError(f"bench overflow probe: exit {rc}, lines {lines}:\n{log}")
+    cli["bench_overflow_probe"] = dict(probe, env=BENCH_PROBE)
+    rc, lines, log = bench_cli("parity")
+    rep = json.loads(lines[0]) if len(lines) == 1 else None
+    if rc != 0 or rep is None or not rep["ok"] or rep["backend"] != "cuda" \
+            or rep["card"] != smi_line:
+        raise AssertionError(f"parity: exit {rc}, lines {lines}:\n{log}")
+    cli["parity"] = rep
+    rc, lines, log = bench_cli("bench_train_step")
+    step = json.loads(lines[-1]) if rc == 0 and lines else None
+    if step is None or step["overflow"] != 0 or step["card"] != smi_line \
+            or not np.isfinite(step["loss"]):
+        raise AssertionError(f"bench_train_step: exit {rc}, lines {lines}:\n{log}")
+    cli["bench_train_step"] = dict(step, lines=lines[:-1])
+    record = {"phase": "bench", "cases": cases, "kernels_at_bench_shapes": holds, "cli": cli}
+    return launches, at_bench, record
 
 
 PARALLEL_BANDS = (2, 5)                 # tile-parallel bands over grid_y = 50
@@ -2393,9 +2510,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    smi_line = smi.stdout.strip().splitlines()[0]
+    smi_line = card_line(dev)
     report = lambda rec: emit({**rec, "card": smi_line})  # every number with its card
     t0 = time.perf_counter()
     build.build()
@@ -2420,6 +2535,12 @@ def main() -> int:
                                                                  serve_record, dev)
         report(record)
         report(reference_phase(dev))
+    # Before any NCCL group of this process: torch.profiler (the bench's
+    # device_ms_per_iter) missed kernels late in the process, after them.
+    t0 = time.perf_counter()
+    bench_launches, bench_rows, record = bench_phase(dev, smi_line)
+    report({**record, "wall_s": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
 
     ts = TrainSetup(host, cam0, dev)
     a_step_row, train_table, record = train_kernels_phase(ts, dev)
@@ -2471,21 +2592,23 @@ def main() -> int:
     # A-int, P, B at C = 13, 21 and 51, C, D) and the trainer after
     # pretraining (A or A-int, P, B at C = 13, C, D) and the 4 ranks of the
     # parallel phase's train CLI, summed (A or A-int, P, B at C = 13, C, D), the
-    # self-check's two legs (A, P, B at C = 13, C, D) and the serving demo's
-    # frames, exact and packed (A, P, B at C = 3, B').
+    # self-check's two legs (A, P, B at C = 13, C, D), the serving demo's
+    # frames, exact and packed (A, P, B at C = 3, B'), and the bench's cases
+    # in process (A, A-int, P, B at C = 3, B', C, D).
     paths = ("serve", "serve_packed", "train", "trainer", "eval", "pretrain", "parallel",
-             "selfcheck", "serve_demo")
-    v, q, t, r, e, w, p, s, d = (serve_launches, packed_launches, train_launches,
-                                 trainer_launches, eval_launches, pretrain_launches,
-                                 parallel_launches, selfcheck_launches, demo_launches)
-    by_path = {k: (v[k], q[k], t[k], r[k], e[k], w[k], p[k], s[k], d[k]) for k in KERNELS}
+             "selfcheck", "serve_demo", "bench")
+    v, q, t, r, e, w, p, s, d, b = (serve_launches, packed_launches, train_launches,
+                                    trainer_launches, eval_launches, pretrain_launches,
+                                    parallel_launches, selfcheck_launches, demo_launches,
+                                    bench_launches)
+    by_path = {k: (v[k], q[k], t[k], r[k], e[k], w[k], p[k], s[k], d[k], b[k]) for k in KERNELS}
     by_path["composite_forward"] = (v["composite_forward"], q["composite_forward"], 0, 0, 0, 0,
-                                    0, 0, d["composite_forward"])
+                                    0, 0, d["composite_forward"], b["composite_forward"])
     by_path["composite_forward_c13"] = (0, 0, t["composite_forward"], r["composite_forward"],
                                         by_c.get(13, 0), w["composite_forward"],
-                                        p["composite_forward"], s["composite_forward"], 0)
-    by_path["composite_forward_c21"] = (0, 0, 0, 0, by_c.get(21, 0), 0, 0, 0, 0)
-    by_path["composite_forward_c51"] = (0, 0, 0, 0, by_c.get(51, 0), 0, 0, 0, 0)
+                                        p["composite_forward"], s["composite_forward"], 0, 0)
+    by_path["composite_forward_c21"] = (0, 0, 0, 0, by_c.get(21, 0), 0, 0, 0, 0, 0)
+    by_path["composite_forward_c51"] = (0, 0, 0, 0, by_c.get(51, 0), 0, 0, 0, 0, 0)
     if (set(by_c) - {13, 21, 51} or q["composite_forward"] or t["composite_forward_packed"]
             or w["composite_forward_packed"] or p["composite_forward_packed"]
             or s["composite_forward_packed"]):
@@ -2508,10 +2631,13 @@ def main() -> int:
     table = (table[:1] + [iv_entry] + table[1:] + [packed_row, train_table[0], b_rows[21],
                                                     b_rows[51]] + train_table[1:])
     for entry in table:
+        if entry["name"] in bench_rows:
+            row = bench_rows[entry["name"]]
+            entry["at_bench_shapes"] = {k: row[k] for k in measured if k in row}
         counts = by_path[entry["name"]]
         entry["launches"] = sum(counts)
         entry["launches_by_path"] = dict(zip(paths, counts))
-    extra = ("event_ms", "ms_parts", "at_train_step", "at_trainer_shapes")
+    extra = ("event_ms", "ms_parts", "at_train_step", "at_trainer_shapes", "at_bench_shapes")
     emit({"kernels": [{k: e[k] for k in keys + extra if k in e} for e in table]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -13,3 +15,17 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+def card_line(device: str | torch.device = "cuda") -> str | None:
+    """The card's name and power limit as nvidia-smi prints them ("NVIDIA H100
+    80GB HBM3, 700.00 W"): a card may be set below its top power and then runs
+    slower, so every time measured on it carries this line. None on the CPU."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    smi = subprocess.run(["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
+                         check=True)
+    return smi.stdout.strip().splitlines()[0]

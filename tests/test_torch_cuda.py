@@ -715,3 +715,25 @@ def test_selfcheck_learns_on_card(dev):
     assert [it for it, _ in run.trajectory] == [1, 100, 200, 300]
     assert max(psnrs) - psnrs[0] >= 6.0, run.trajectory
     assert run.overflow == 0 and all(np.isfinite(psnrs))
+
+
+def test_device_ms_queued_matches_profiler(dev):
+    """`utils.timing.queued_ms` (each call queued behind a spinning kernel,
+    timed with CUDA events) reads within 10% of what a fresh process's
+    profiler reads for a gather of 2M rows, and a call that waits for the
+    card cannot be queued ahead."""
+    from relightable3dgaussians_w_torch.utils import timing
+
+    rows = torch.randn(1 << 20, 9, device=dev)
+    idx = torch.randint(0, 1 << 20, (1 << 21,), device=dev)
+    gather = lambda: rows[idx]
+    queued = timing.queued_ms(gather, 10)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(10):
+            gather()
+        torch.cuda.synchronize()
+    profiled = sum(e.self_device_time_total for e in timing.device_events(prof)) / 1e4
+    assert queued is not None and profiled > 0
+    assert abs(queued - profiled) < 0.1 * profiled, (queued, profiled)
+    assert timing.queued_ms(lambda: float(rows[idx].sum()), 3) is None
