@@ -53,9 +53,10 @@ Gaussians, random MLP weights from a seed), then:
             device idle share; then, from the starting state, 6 steps that all
             reuse one set of draws, whose loss must fall;
 8. intervals: row-interval binning at yaw 0 on the scene as is and with
-            scales[:, 0] *= 8: rect and interval entry counts, the interval
-            expansion kernel (A-int) against its plain version (bitwise) with
-            times and bound, and a render plus one backward with intervals on
+            scales[:, 0] *= 8: rect and interval entry counts, the
+            row-interval kernel (I) and the interval expansion kernel (A-int)
+            against their plain versions (bitwise, every row and slot) with
+            times and bounds, and a render plus one backward with intervals on
             and off, which must give the same bits (image, alpha, the five
             gradients);
 9. trainer: a COLMAP dataset of 8 views of the scene (yaw -10..10 degrees on
@@ -64,13 +65,14 @@ Gaussians, random MLP weights from a seed), then:
             defaults plus runtime.row_intervals=true for 60 iterations (densify
             rounds of both variants, opacity resets, evaluation and save at
             the end): every step's loss finite, every binning overflow healed
-            with only its own step rejected, launches of A-int, B, C, P and D, a
-            densify round that selects, the checkpoint in the reference
+            with only its own step rejected, launches of I, A-int, B, C, P and
+            D, a densify round that selects, the checkpoint in the reference
             layout; then on the trained state (pool headroom 8) and view 0,
-            kernels A-int (bitwise), B, C, P and D against their plain versions
-            on the inputs the trainer's step gives them, the full-state and
-            PLY reloads rendering view 0 as the trained state does, and steps
-            with row intervals on and off (times and profiled stages); init,
+            kernels I and A-int (bitwise), B, C, P and D against their plain
+            versions on the inputs the trainer's step gives them, the
+            full-state and PLY reloads rendering view 0 as the trained state
+            does, and steps with row intervals on (kernel I, then the eager
+            plain pass in its place), and off (times and profiled stages); init,
             per-iteration (CUDA events between the loop's steps, no pull of
             its own) and event times;
 10. serve_packed: the serve phase's sweep with runtime.serve_packed_rgb=true:
@@ -166,15 +168,18 @@ Gaussians, random MLP weights from a seed), then:
             train mode with BENCH_ANISO=8 (row intervals on: A-int), and render
             mode exact, packed (B') and at BENCH_SKIP_ALPHA=0.0625: each with
             zero overflow, every stage of its pie > 0, the card line and the
-            launches of its kernels (the kernel table's "bench" path); then,
-            outside the count, A, A-int (BENCH_ANISO=8), B at C = 3, C, P and D
-            against their plain versions on the inputs the train case gives
-            them ("at_bench_shapes" in the kernel table); then one subprocess
-            of each CLI, each printing its one JSON line: the bench's overflow
-            probe (200,000 Gaussians, budget 262,144: overflow > 0), the
-            parity probe at its defaults (50,000 Gaussians, 512x512, the card
-            against the plain path on the CPU: ok) and the train-step bench at
-            its defaults (500,000 Gaussians, 800x800: zero overflow).
+            launches of its kernels (the kernel table's "bench" path; every
+            case launches I in the bench's probe of the entry demand); then,
+            outside the count, A, I and A-int (BENCH_ANISO=8), B at C = 3, C,
+            P and D against their plain versions on the inputs the train case
+            gives them ("at_bench_shapes" in the kernel table) and the aniso-8
+            case once more with the eager plain pass in I's place; then one
+            subprocess of each CLI, each printing its one JSON line: the
+            bench's overflow probe (200,000 Gaussians, budget 262,144:
+            overflow > 0), the parity probe at its defaults (50,000
+            Gaussians, 512x512, the card against the plain path on the CPU:
+            ok) and the train-step bench at its defaults (500,000 Gaussians,
+            800x800: zero overflow).
 
 Depth cuts: the trainer phase runs 60 of the default 40,000 iterations, the
 eval phase EVAL_ITERS = 30 and RELIT_STEPS = 8 of the relighting CLI's 30
@@ -230,6 +235,7 @@ from relightable3dgaussians_w_torch.ops import (binning, bsdf, composite, knn, p
 from relightable3dgaussians_w_torch.ops.cuda import KERNEL_COUNTERS as KERNELS
 from relightable3dgaussians_w_torch.ops.cuda import build, launch_counts, reset_launches
 from relightable3dgaussians_w_torch.ops.cuda import expand as expand_kernel
+from relightable3dgaussians_w_torch.ops.cuda import row_intervals as row_intervals_kernel
 from relightable3dgaussians_w_torch.ops.cuda import segment_sum as segment_sum_kernel
 from relightable3dgaussians_w_torch.ops.cuda import tile_composite as composite_kernel
 from relightable3dgaussians_w_torch.parallel import collectives as C
@@ -281,6 +287,11 @@ UNPACK_OPS_PER_ROW = 6
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM data sheet, float32 outside tensor cores
 EXPAND_OPS_PER_SLOT = 4        # integer ops per written slot
+# Kernel I (the row-interval pass) per row: reads mean2d, conic, opacity, rect
+# min and max, tiles_touched (44 bytes), writes its count and 8 packed rows
+# (36 bytes); float ops: the prelude (24) and 38 for each of the 8 tile rows.
+ROW_INTERVAL_BYTES = 80
+ROW_INTERVAL_OPS = 24 + 8 * 38
 # Float ops of a visited (pixel, entry) pair that the compositor skips: power
 # (5 multiplies, 5 adds) and its test; where power <= 0, also expf, alpha
 # (multiply, min) and its test. The terminating pair (power, alpha, then
@@ -675,19 +686,35 @@ def autograd_node(root, name):
     raise LookupError(f"no {name} node in the autograd graph")
 
 
-def recorded_expansions(fn):
-    """(fn()'s result, the (args, kwargs) of every `expand_entries` call it made)."""
-    calls, launch = [], expand_kernel.expand_entries
+@contextlib.contextmanager
+def recording(module, name):
+    """The (args, kwargs) of every call of `module.name` inside the block."""
+    calls, inner = [], getattr(module, name)
 
     def recorded(*args, **kwargs):
         calls.append((args, kwargs))
-        return launch(*args, **kwargs)
+        return inner(*args, **kwargs)
 
-    expand_kernel.expand_entries = recorded
+    setattr(module, name, recorded)
     try:
-        return fn(), calls
+        yield calls
     finally:
-        expand_kernel.expand_entries = launch
+        setattr(module, name, inner)
+
+
+def recorded_expansions(fn):
+    """(fn()'s result, the (args, kwargs) of every `expand_entries` call it made,
+    and those of every call of the row-interval kernel's wrapper)."""
+    with recording(expand_kernel, "expand_entries") as calls, \
+            recording(row_intervals_kernel, "row_intervals") as iv_calls:
+        return fn(), calls, iv_calls
+
+
+def eager_row_intervals(pre, opacities, tile=16, skip_alpha=1.0 / 255.0):
+    """The row-interval pass as the port ran it before kernel I: the eager
+    plain version, its rows converted to int32."""
+    counts, packed = preprocess.row_intervals_plain(pre, opacities, tile, skip_alpha)
+    return counts, packed.to(torch.int32)
 
 
 def graph_inputs(forward, leaves, n, what):
@@ -697,7 +724,7 @@ def graph_inputs(forward, leaves, n, what):
     inputs and outputs, the cotangents that reach it and the gather, and the
     gather's segment layout (the binning's `seg_bounds` and `slot_pos`) with
     the entry ids it stands for."""
-    (loss, overflow), expand_calls = recorded_expansions(forward)
+    (loss, overflow), expand_calls, iv_calls = recorded_expansions(forward)
     if int(overflow) != 0:
         raise AssertionError(f"entry budget overflow {int(overflow)} on {what}")
     comp = autograd_node(loss.grad_fn, "_CompositeTilesBackward")
@@ -709,7 +736,8 @@ def graph_inputs(forward, leaves, n, what):
     gather.register_prehook(lambda g: got.update(d_rows=g[0]))
     torch.autograd.grad(loss, leaves, allow_unused=True)
     zero_if_none = lambda g, like: torch.zeros_like(like) if g is None else g.contiguous()
-    return dict(expand=expand_calls[0], feat=feat, tile_start=tile_start, tile_end=tile_end,
+    return dict(expand=expand_calls[0], intervals=iv_calls[0] if iv_calls else None,
+                feat=feat, tile_start=tile_start, tile_end=tile_end,
                 bg=bg, rgb=rgb, tfin=tfin,
                 g_rgb=zero_if_none(got["g_rgb"], rgb),     # a loss may read no T_final
                 g_tfin=zero_if_none(got["g_tfin"], tfin),
@@ -882,18 +910,26 @@ def binning_sort(bounds, order):
 def hold_expansion(call, label):
     """Kernel A (rects) or A-int (row intervals: a `packed` keyword) on the
     arguments the binning passed it (`step_inputs`'s "expand", or built from a
-    frame) against its plain version, bitwise, with times and its byte bound:
-    the kernels line's row and a record (keys "a_*" or "a_int_*")."""
+    frame) against its plain version, bitwise, also with a budget of half the
+    entries, with times and its byte bound: the kernels line's row and a
+    record (keys "a_*" or "a_int_*")."""
     args, kwargs = call
     packed = kwargs.get("packed")
     name, key = ("expand_entries", "a") if packed is None else ("expand_entries_intervals",
                                                                  "a_int")
     counts, max_dup = args[0], args[-1]
-    keys_k, gid_k = expand_kernel.expand_entries(*args, packed=packed)
-    keys_p, gid_p = binning.expand_entries_plain(*args, packed=packed)
-    torch.cuda.synchronize()
-    if not (torch.equal(keys_k, keys_p) and torch.equal(gid_k, gid_p)):
-        raise AssertionError(f"{label}: {name} differs from its plain version")
+    # As called, then with a budget of half the entries (an overflow: the
+    # budget clamp and the unused-slot fill).
+    short = max(min(int(counts.sum()), max_dup) // 2, 1)
+    for budget in (max_dup, short):
+        call_args = args[:-1] + (budget,)
+        keys_k, gid_k = expand_kernel.expand_entries(*call_args, packed=packed)
+        keys_p, gid_p = binning.expand_entries_plain(*call_args, packed=packed)
+        torch.cuda.synchronize()
+        if not (torch.equal(keys_k, keys_p) and torch.equal(gid_k, gid_p)):
+            raise AssertionError(f"{label}: {name} differs from its plain version at a "
+                                 f"budget of {budget}")
+    del keys_k, gid_k, keys_p, gid_p
     launch = lambda: expand_kernel.expand_entries(*args, packed=packed)
     k_ms, k_event_ms = device_ms(launch, 20), median_ms(launch, 20)
     p_ms = median_ms(lambda: binning.expand_entries_plain(*args, packed=packed), 5)
@@ -905,8 +941,38 @@ def hold_expansion(call, label):
                max_abs_err=0.0, ms=k_ms, event_ms=k_event_ms, plain_ms=p_ms,
                bound_ms=k_bound[0], bound_by=k_bound[1], library_ms=None)
     return row, {"inputs": label, "rows": n, "entries": entries, "max_dup": max_dup,
-                 f"{key}_bitwise_equal": True, f"{key}_ms": k_ms, f"{key}_event_ms": k_event_ms,
+                 "overflow_budget": short, f"{key}_bitwise_equal": True, f"{key}_ms": k_ms,
+                 f"{key}_event_ms": k_event_ms,
                  f"{key}_plain_ms": p_ms, f"{key}_bound_ms": k_bound[0]}
+
+
+def hold_row_intervals(call, label):
+    """Kernel I on the arguments a caller passed the row-interval wrapper
+    (`preprocess.row_intervals`: a PreprocessOut and the opacities) against
+    its plain version `row_intervals_plain` (whose float32 rows it writes as
+    int32), bitwise on every row, with times and its byte bound: the kernels
+    line's row and a record (keys "i_*")."""
+    args, kwargs = call
+    counts_k, packed_k = row_intervals_kernel.row_intervals(*args, **kwargs)
+    counts_p, packed_p = preprocess.row_intervals_plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    if not (torch.equal(counts_k, counts_p) and torch.equal(packed_k, packed_p.to(torch.int32))):
+        raise AssertionError(f"{label}: row_intervals differs from its plain version")
+    launch = lambda: row_intervals_kernel.row_intervals(*args, **kwargs)
+    k_ms, k_event_ms = device_ms(launch, 20), median_ms(launch, 20)
+    plain = lambda: preprocess.row_intervals_plain(*args, **kwargs)
+    p_ms, p_device_ms = median_ms(plain, 5), device_ms(plain, 5)
+    n = counts_k.shape[0]
+    k_bound = bound(ROW_INTERVAL_BYTES * n, ROW_INTERVAL_OPS * n)
+    row = dict(name="row_intervals", route="cuda",
+               source="relightable3dgaussians_w_torch/csrc/row_intervals.cu",
+               replaces="relightable3dgaussians_w_tpu/ops/preprocess.py:249",
+               max_abs_err=0.0, ms=k_ms, event_ms=k_event_ms, plain_ms=p_ms,
+               bound_ms=k_bound[0], bound_by=k_bound[1], library_ms=None)
+    return row, {"inputs": label, "rows": n, "rows_with_entries": int((counts_k > 0).sum()),
+                 "i_bitwise_equal": True, "i_ms": k_ms, "i_event_ms": k_event_ms,
+                 "i_plain_ms": p_ms, "i_plain_device_ms": p_device_ms,
+                 "i_bound_ms": k_bound[0]}
 
 
 def train_kernels_phase(ts, dev):
@@ -924,7 +990,7 @@ def train_kernels_phase(ts, dev):
 
 TRAIN_PATH = ("expand_entries", "composite_forward", "composite_backward", "segment_sum_rows",
               "permute_entries")
-TRAINER_PATH = ("expand_entries_intervals",) + TRAIN_PATH[1:]
+TRAINER_PATH = ("row_intervals", "expand_entries_intervals") + TRAIN_PATH[1:]
 
 
 def params_finite(state):
@@ -1076,8 +1142,9 @@ def train_phase(ts, dev):
 def intervals_phase(host, dev):
     """Row intervals at full width, yaw 0: the scene as is and with
     scales[:, 0] *= ANISO. Per scene the rect and interval entry counts,
-    kernel A-int against its plain version (bitwise) with times and bound (the
-    kernels line takes A-int at the trainer's shapes, `trainer_phase`), and
+    kernels I (the row-interval pass) and A-int against their plain versions
+    (bitwise) with times and bounds (the kernels line takes them at the
+    trainer's shapes, `trainer_phase`), and
     a render plus one backward with intervals on and off, bitwise equal (the
     deltas against the JAX test's gates, 2e-6 on the image and 5e-4 of the
     largest gradient, are recorded beside)."""
@@ -1090,12 +1157,13 @@ def intervals_phase(host, dev):
             pre = preprocess.preprocess(xyz, scl, quat, cam.viewmat, cam.projmat, cam.tan_fovx,
                                         cam.tan_fovy, RES, RES, 16,
                                         active=host.state.gauss_state.alive, opacities=opa)
+        _, i_rec = hold_row_intervals(((pre, opa), {}), label)
+        with torch.no_grad():
             counts, packed = preprocess.row_intervals(pre, opa)
         rect_n, iv_n = int(pre.tiles_touched.sum()), int(counts.sum())
         max_dup = ((int(rect_n * 1.05) + 4095) // 4096) * 4096
-        call = (expand_args(pre, counts, gx, max_dup),
-                {"packed": packed.to(torch.int32).contiguous()})
-        _, a_int = hold_expansion(call, label)
+        _, a_int = hold_expansion((expand_args(pre, counts, gx, max_dup), {"packed": packed}),
+                                  label)
 
         # Render + one backward with row intervals on and off.
         wimg = torch.randn((RES, RES, 3), generator=torch.Generator(device=dev).manual_seed(0),
@@ -1130,6 +1198,8 @@ def intervals_phase(host, dev):
             "rect_entries": rect_n, "interval_entries": iv_n, "cut": 1.0 - iv_n / rect_n,
             "max_dup": max_dup, **{k: a_int[k] for k in ("a_int_bitwise_equal", "a_int_ms",
                                                          "a_int_plain_ms", "a_int_bound_ms")},
+            **{k: i_rec[k] for k in ("i_bitwise_equal", "i_ms", "i_plain_ms", "i_plain_device_ms",
+                                     "i_bound_ms", "rows_with_entries")},
             "image_max_abs_delta": img_d, "alpha_max_abs_delta": alpha_d,
             "grad_max_rel_delta": grad_rel,
             "image_bitwise_equal": True, "grads_bitwise_equal": True}
@@ -1225,9 +1295,10 @@ def trainer_phase(host, dev):
     """The trainer through `cli.train.main` on a COLMAP dataset of the scene:
     default settings (pool headroom 8, demand-sized budget, the probe, the loss
     logged every 100 iterations) plus runtime.row_intervals=true and
-    TRAINER_SCHEDULE. Then, on the trained state and view 0: kernels A-int, B
-    (C = 13), C, P and D against their plain versions at the shapes the trainer
-    gives them, the two reloads, and steps with row intervals on and off."""
+    TRAINER_SCHEDULE. Then, on the trained state and view 0: kernels I, A-int,
+    B (C = 13), C, P and D against their plain versions at the shapes the
+    trainer gives them, the two reloads, and steps with row intervals on (kernel
+    I, and the eager plain pass in its place) and off."""
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     t0 = time.perf_counter()
     write_dataset(host, SCENE_DIR, dev)
@@ -1297,8 +1368,9 @@ def trainer_phase(host, dev):
     vargs = (view["mats"], view["image_t"], view["sky_t"], view["occ_t"], view["cam"].uid)
     x = step_inputs(tr.state, *vargs, tr.mlp, tr.cfg, tr.rcfg, tr.bg_color, dev)
     a_int_row, a_int = hold_expansion(x["expand"], "trainer")
-    if a_int_row["name"] != "expand_entries_intervals":
+    if a_int_row["name"] != "expand_entries_intervals" or x["intervals"] is None:
         raise AssertionError("trainer: the binning walked rects, not row intervals")
+    i_row, i_rec = hold_row_intervals(x["intervals"], "trainer")
     step_rows, step_rec = hold_step_kernels(x, tr.rcfg, dev)
     del x
 
@@ -1329,15 +1401,17 @@ def trainer_phase(host, dev):
     tr.state = st
 
     # Steps of the trained state on view 0 through the train_step the loop
-    # calls, with row intervals on (as trained) and off (the rects, the budget
+    # calls, with row intervals on (as trained: kernel I, then with the eager
+    # plain pass in its place) and off (the rects, the budget
     # sized from the probe's rect demand): 6 timed with CUDA events and no
     # sync between them, then 3 profiled (the port's profiler ranges).
     rect_demand, iv_demand = tr.init_report["rect_demand"], tr.init_report["interval_demand"]
+    rect_rcfg = tr.rcfg._replace(
+        row_intervals=False, max_dup=size_entry_budget(0, False, False, rect_demand, iv_demand)[1])
     modes = {}
-    for mode, rcfg in (("row_intervals_on", tr.rcfg),
-                       ("row_intervals_off", tr.rcfg._replace(
-                           row_intervals=False,
-                           max_dup=size_entry_budget(0, False, False, rect_demand, iv_demand)[1]))):
+    for mode, rcfg, pass_ in (("row_intervals_on", tr.rcfg, row_intervals_kernel.row_intervals),
+                              ("row_intervals_on_eager_pass", tr.rcfg, eager_row_intervals),
+                              ("row_intervals_off", rect_rcfg, None)):
         over = []
 
         def step(state, rcfg=rcfg, over=over):
@@ -1346,11 +1420,16 @@ def trainer_phase(host, dev):
             over.append(aux.overflow)
             return state
 
-        times, tr.state = step_times(step, tr.state, 6)
-        modes[mode] = {"max_dup": rcfg.max_dup, "step_ms": times,
-                       "ms_per_step_median_2_to_6": float(np.median(times[1:])),
-                       **profile_steps(step, tr.state, 3),
-                       "overflow": max(int(n) for n in over)}
+        inner = row_intervals_kernel.row_intervals
+        row_intervals_kernel.row_intervals = pass_ or inner
+        try:
+            times, tr.state = step_times(step, tr.state, 6)
+            modes[mode] = {"max_dup": rcfg.max_dup, "step_ms": times,
+                           "ms_per_step_median_2_to_6": float(np.median(times[1:])),
+                           **profile_steps(step, tr.state, 3),
+                           "overflow": max(int(n) for n in over)}
+        finally:
+            row_intervals_kernel.row_intervals = inner
 
     record = {"phase": "trainer", "views": TRAINER_VIEWS, "resolution": [RES, RES],
               "iterations": TRAINER_ITERS, "argv": argv, "dataset_write_s": dataset_s,
@@ -1375,9 +1454,10 @@ def trainer_phase(host, dev):
               "reload_full_state_render": "bitwise equal",
               "reload_ply_render_max_abs_err": ply_err[0],
               "reload_ply_render_bitwise_equal": bool(torch.equal(img_ply, ref)),
-              "kernels_at_trainer_shapes": {"expand_entries_intervals": a_int, **step_rec},
+              "kernels_at_trainer_shapes": {"row_intervals": i_rec,
+                                            "expand_entries_intervals": a_int, **step_rec},
               **modes}
-    return launches, a_int_row, step_rows, record
+    return launches, a_int_row, i_row, step_rows, record
 
 
 class ForwardRecorder:
@@ -1980,12 +2060,16 @@ BENCH_CASES = {"train": {}, "train_aniso8": {"BENCH_ANISO": "8"},
                "render_lod": {"BENCH_MODE": "render", "BENCH_SKIP_ALPHA": "0.0625"}}
 BENCH_TRAIN_KERNELS = ("permute_entries", "composite_forward", "composite_backward",
                        "segment_sum_rows")
-BENCH_LAUNCHES = {"train": ("expand_entries",) + BENCH_TRAIN_KERNELS,
-                  "train_aniso8": ("expand_entries_intervals",) + BENCH_TRAIN_KERNELS,
-                  "render": ("expand_entries", "permute_entries", "composite_forward"),
-                  "render_packed": ("expand_entries", "permute_entries",
+# Every case launches kernel I in `bench.build`'s probe of the entry demand.
+BENCH_LAUNCHES = {"train": ("row_intervals", "expand_entries") + BENCH_TRAIN_KERNELS,
+                  "train_aniso8": ("row_intervals", "expand_entries_intervals")
+                  + BENCH_TRAIN_KERNELS,
+                  "render": ("row_intervals", "expand_entries", "permute_entries",
+                             "composite_forward"),
+                  "render_packed": ("row_intervals", "expand_entries", "permute_entries",
                                     "composite_forward_packed"),
-                  "render_lod": ("expand_entries", "permute_entries", "composite_forward")}
+                  "render_lod": ("row_intervals", "expand_entries", "permute_entries",
+                                 "composite_forward")}
 BENCH_PROBE = {"BENCH_N": "200000", "BENCH_MAX_DUP": "262144", "BENCH_ITERS": "3"}
 SCRIPTS = "relightable3dgaussians_w_torch.scripts."
 
@@ -2060,13 +2144,24 @@ def bench_phase(dev, smi_line):
     del x, leaves
     arrs8, cam8, cfg8 = bench.build(n, RES, RES, device=dev, env=bench_env("train_aniso8"))
     with torch.no_grad():
-        _, calls = recorded_expansions(lambda: rasterize.rasterize(*arrs8, bg, cam8, cfg8,
-                                                                   device=dev))
+        _, calls, iv_calls = recorded_expansions(
+            lambda: rasterize.rasterize(*arrs8, bg, cam8, cfg8, device=dev))
     ai_row, holds["expand_intervals"] = hold_expansion(calls[0], "bench train call, aniso 8")
-    del arrs8, calls
+    i_row, holds["row_intervals"] = hold_row_intervals(iv_calls[0], "bench train call, aniso 8")
+    del arrs8, calls, iv_calls
     at_bench = dict(zip(("composite_forward", "composite_backward", "segment_sum_rows",
                          "permute_entries"), rows),
-                    expand_entries=a_row, expand_entries_intervals=ai_row)
+                    expand_entries=a_row, expand_entries_intervals=ai_row, row_intervals=i_row)
+    # The aniso-8 case once more with the eager plain pass in kernel I's place,
+    # the route before kernel I (outside the launch count).
+    inner = row_intervals_kernel.row_intervals
+    row_intervals_kernel.row_intervals = eager_row_intervals
+    try:
+        eager = bench.run(dev, bench_env("train_aniso8"))
+    finally:
+        row_intervals_kernel.row_intervals = inner
+    eager_pass = {k: eager["extra"].get(k) for k in ("ms_per_iter", "device_ms_per_iter",
+                                                     "overflow_entries", "stage_pie_ms")}
 
     cli = {}
     rc, lines, log = bench_cli("bench", BENCH_PROBE)
@@ -2087,7 +2182,8 @@ def bench_phase(dev, smi_line):
             or not np.isfinite(step["loss"]):
         raise AssertionError(f"bench_train_step: exit {rc}, lines {lines}:\n{log}")
     cli["bench_train_step"] = dict(step, lines=lines[:-1])
-    record = {"phase": "bench", "cases": cases, "kernels_at_bench_shapes": holds, "cli": cli}
+    record = {"phase": "bench", "cases": cases, "train_aniso8_eager_row_intervals": eager_pass,
+              "kernels_at_bench_shapes": holds, "cli": cli}
     return launches, at_bench, record
 
 
@@ -2556,7 +2652,7 @@ def main() -> int:
     del ts
 
     report(intervals_phase(host, dev))
-    trainer_launches, iv_entry, trainer_table, record = trainer_phase(host, dev)
+    trainer_launches, iv_entry, i_entry, trainer_table, record = trainer_phase(host, dev)
     report(record)
     pretrain_data_s = write_pretrain_dataset(host, dev)
     fg_points = host.state.gaussians.xyz[:N_GAUSS].detach().clone()
@@ -2628,7 +2724,7 @@ def main() -> int:
               for C in (21, 51)}
     for row in b_rows.values():
         row.pop("at_trainer_shapes")
-    table = (table[:1] + [iv_entry] + table[1:] + [packed_row, train_table[0], b_rows[21],
+    table = (table[:1] + [iv_entry, i_entry] + table[1:] + [packed_row, train_table[0], b_rows[21],
                                                     b_rows[51]] + train_table[1:])
     for entry in table:
         if entry["name"] in bench_rows:

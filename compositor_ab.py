@@ -6,7 +6,7 @@
 Each OLD is another version of one source in `relightable3dgaussians_w_torch/csrc/`
 (for example `git show <commit>:<that path> > build/ab/old.cu`): OLD_COMPOSITOR
 of `tile_composite.cu` (kernels B, B' and C), `--old-expand` of `expand.cu`
-(kernel A; same C interface), `--old-segment-sum` of `segment_sum.cu` (kernel D
+(kernels A and A-int; same C interface), `--old-segment-sum` of `segment_sum.cu` (kernel D
 as PRs 2-5 built it: `r3dgw_segment_sum` over an int64 sort permutation, which
 its wrapper got from sorting the ids). `--old-flags` are the extra nvcc flags
 the old compositor was built with. The script
@@ -25,13 +25,14 @@ the old compositor was built with. The script
    B (`hold_forward`: the serving frame at C = 3, the training step's and the
    trainer's C = 13, the evaluation's 21 and 51), B' (the first frame of
    `serve_packed_phase`), C and D (`hold_step_kernels`: the training step and
-   the trainer) and A (`hold_expansion` on rects: the serving frame and the
-   training step). D's new side is the gather's route, the binning's
+   the trainer) and A and A-int (`hold_expansion`: rects on the serving frame
+   and the training step, row intervals on the intervals phase's two scenes,
+   the trainer and the bench's aniso-8 call). D's new side is the gather's route, the binning's
    permutation kernel P plus the segment sum, with beside it the kernel
    alone, P alone, what P replaces in the binning (PR 5's gather gid[perm]
    and a scatter of the inverse permutation, P's plain version) and the
    general route (sort + kernel); its old side is PR 5's wrapper (sort,
-   search, kernel). A and D are timed by the device time of what
+   search, kernel). A, A-int and D are timed by the device time of what
    they launch (chip_smoke's `device_ms`), and again with CUDA events.
 
 Each comparison is printed as a JSON line starting with "ab " and written to
@@ -294,7 +295,8 @@ def install_hooks(libs, card, log):
     hold_forward, hold_step, serve_packed = cs.hold_forward, cs.hold_step_kernels, \
         cs.serve_packed_phase
     hold_expansion = cs.hold_expansion
-    step_labels = iter(("training step", "trainer's trained state"))
+    # hold_step_kernels's inputs, in the order chip_smoke holds them.
+    step_labels = iter(("bench train call", "training step", "trainer's trained state"))
 
     def ab_forward(call, label):
         out = hold_forward(call, label)
@@ -307,7 +309,7 @@ def install_hooks(libs, card, log):
 
     def ab_step(x, rcfg, dev):
         out = hold_step(x, rcfg, dev)
-        label = next(step_labels)
+        label = next(step_labels, "step")
         if "segment_sum" in libs:
             ab_segment_sum(x, libs["segment_sum"], card, log, label)
         if "tile_composite" not in libs:
@@ -352,19 +354,18 @@ def install_hooks(libs, card, log):
     def ab_expansion(call, label):
         out = hold_expansion(call, label)
         args, kwargs = call
-        if kwargs.get("packed") is None:
-            fn = lambda: ek.expand_entries(*args)
-            old = under(lambda: use(libs["expand"], ek), fn)()
-            new = fn()
-            torch.cuda.synchronize()
-            report({"what": "A", "inputs": label, "gaussians": args[0].shape[0],
-                    "entries": out[1]["entries"], "max_dup": args[-1],
-                    "bound_ms": out[0]["bound_ms"],
-                    **turns(fn, None, under(lambda: use(libs["expand"], ek), fn),
-                            timer=cs.device_ms),
-                    "event_timed": turns(fn, None, under(lambda: use(libs["expand"], ek), fn)),
-                    "bitwise_equal": bool(torch.equal(new[0], old[0])
-                                          and torch.equal(new[1], old[1])), "card": card}, log)
+        fn = lambda: ek.expand_entries(*args, **kwargs)
+        old = under(lambda: use(libs["expand"], ek), fn)()
+        new = fn()
+        torch.cuda.synchronize()
+        report({"what": "A" if kwargs.get("packed") is None else "A-int", "inputs": label,
+                "gaussians": args[0].shape[0], "entries": out[1]["entries"],
+                "max_dup": args[-1], "bound_ms": out[0]["bound_ms"],
+                **turns(fn, None, under(lambda: use(libs["expand"], ek), fn),
+                        timer=cs.device_ms),
+                "event_timed": turns(fn, None, under(lambda: use(libs["expand"], ek), fn)),
+                "bitwise_equal": bool(torch.equal(new[0], old[0])
+                                      and torch.equal(new[1], old[1])), "card": card}, log)
         return out
 
     cs.hold_step_kernels = ab_step

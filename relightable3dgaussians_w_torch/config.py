@@ -103,11 +103,11 @@ class RuntimeConfig:
                                       # cut >= 15%
     seed: int = 0
     detect_anomaly: bool = False      # torch.autograd anomaly detection
-    data_parallel: int = 0            # > 1: not yet ported (ROADMAP queue 1 item 5)
-    coordinator_address: str = ""     # multi-host: not yet ported (queue 1 item 5)
-    num_processes: int = 0
+    data_parallel: int = 0            # > 1: data-parallel ranks (parallel/, trainer)
+    coordinator_address: str = ""     # multi-host: "host:port" of the process group
+    num_processes: int = 0            #   (parallel/multihost.maybe_initialize)
     process_id: int = -1
-    gauss_shards: int = 1             # > 1: not yet ported (queue 1 item 5)
+    gauss_shards: int = 1             # > 1: the pool sharded over this many ranks
     use_pallas: bool = True           # TPU layout only: no effect in the port
     split_dispatch: bool = True       # TPU layout only: no effect in the port
     profile_steps: str = ""           # "START:END": torch.profiler trace of those steps

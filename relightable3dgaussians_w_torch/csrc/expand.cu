@@ -12,7 +12,8 @@
 // equal bitwise.
 //
 // What bounds them on an H100: bytes. Per slot they write an 8-byte key and a
-// 4-byte id; per Gaussian they read ~32 bytes (+32 bytes of packed interval
+// 4-byte id; per Gaussian they read its 12-byte count and offset, and a
+// Gaussian with entries ~20 bytes more (+ up to 32 bytes of packed interval
 // rows); the integer work is a few operations per slot. The TPU kernel's
 // monotone join over depth-ranked rows (a one-hot MXU matmul per 512 slots)
 // exists because a TPU cannot scatter; here no join is needed.
@@ -28,9 +29,19 @@
 // offsets, its row and column in the rect one integer division. Every block
 // does the same amount of work whatever the counts are (0 for a culled
 // Gaussian, hundreds of tiles for a large rect).
-// expand_intervals_kernel keeps one thread per Gaussian, which writes its own
-// contiguous run of slots at its offset; its walks are nested counters (the
-// packed row is split with a shift and a mask).
+// expand_intervals_kernel carries that design over to the interval walk. Its
+// merge is cut into tiles of 512 items, and each block walks up to 4
+// consecutive tiles: one 32-way search finds the Gaussian of its first item,
+// each later tile starts where the last one ended, and one more load tells
+// whether the block's items are Gaussians only (a run of culled rows, most of
+// a trainer's pool), which it then skips. A tile stages its Gaussians'
+// offsets (32-bit, relative to its first slot) and counts, counts those
+// before its last item with warp ballots, and reads rect, rank and the 8
+// packed rows only for the Gaussians with entries (52 bytes a Gaussian, 27 KB
+// a block). Its latency chains (loads, then barriers) bound it, so the kernel
+// is held to 32 registers for 8 resident blocks an SM. A slot's row is the
+// first interval row whose running sum of widths passes it (rows with w = 0
+// are stepped over), or a full-width row below them by one division.
 //
 // The same launch also fills the slots past the real entries (key INT64_MAX,
 // id 0), reading the total from the last offset on the device, so the wrapper
@@ -46,35 +57,9 @@ constexpr int kThreads = 256;
 constexpr int kRowCap = 8;                             // preprocess.H_CAP
 constexpr int64_t kKeyInvalid = 0x7FFFFFFFFFFFFFFFLL;  // INT64_MAX
 
-// Slots past the last real entry: key INT64_MAX, id 0.
-__device__ __forceinline__ void fill_unused(int64_t i, const int32_t* __restrict__ counts,
-                                            const int64_t* __restrict__ offsets, int64_t n,
-                                            int64_t max_dup, int64_t* __restrict__ keys,
-                                            int32_t* __restrict__ gid) {
-  if (i < max_dup) {
-    const int64_t total = n > 0 ? offsets[n - 1] + counts[n - 1] : 0;
-    if (i >= total) {
-      keys[i] = kKeyInvalid;
-      gid[i] = 0;
-    }
-  }
-}
-
-// Rows of full width `w` from tile row ry + q0 on, until `lim` slots are written.
-__device__ __forceinline__ void walk_rect(int64_t q0, int64_t& s, int64_t lim, int64_t w,
-                                          int64_t rx, int64_t ry, int64_t rk, int64_t grid_x,
-                                          int64_t off, int32_t id, int64_t* __restrict__ keys,
-                                          int32_t* __restrict__ gid) {
-  for (int64_t q = q0; s < lim; ++q) {
-    const int64_t row = (ry + q) * grid_x + rx;
-    for (int64_t r = 0; r < w && s < lim; ++r, ++s) {
-      keys[off + s] = ((row + r) << 32) | rk;
-      gid[off + s] = id;
-    }
-  }
-}
-
 constexpr int kItems = 1024;  // merge items (Gaussians and slots) per block of expand_kernel
+
+__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
 
 // The number of Gaussians among the first d items of the merge of n Gaussians
 // and `slots` slots: the least g in [max(0, d - slots), min(d, n)] with
@@ -162,41 +147,151 @@ __global__ void __launch_bounds__(kThreads) expand_kernel(
   }
 }
 
+constexpr int kIvItems = 512;  // merge items per tile of expand_intervals_kernel
+constexpr int kIvTilesPerBlock = 4;  // tiles a block walks (fewer when one wave holds them)
+constexpr int kIvBlocksPerSM = 8;    // resident blocks: 32 registers a thread, 27 KB
+constexpr int kIvStage = (kIvItems + 1 + kThreads - 1) / kThreads;  // staged Gaussians a thread
+constexpr int kWarps = kThreads / 32;
+
 // packed [kRowCap, n]: txl_rel + 128 * w_j of tile row j of Gaussian i (0 for an
 // empty row); counts[i] = sum_j w_j + max(h - kRowCap, 0) * rect_w (0 if culled).
-__global__ void __launch_bounds__(kThreads) expand_intervals_kernel(
+// Each block walks `tiles_per_block` consecutive tiles of kIvItems merge items;
+// the first tile's Gaussian comes from one merge-path search, each later one
+// starts where the previous tile ended.
+__global__ void __launch_bounds__(kThreads, kIvBlocksPerSM) expand_intervals_kernel(
     const int32_t* __restrict__ counts, const int64_t* __restrict__ offsets,
     const int32_t* __restrict__ rect_min, const int32_t* __restrict__ rect_w,
     const int64_t* __restrict__ rank, const int32_t* __restrict__ packed, int64_t n,
-    int64_t grid_x, int64_t max_dup, int64_t* __restrict__ keys, int32_t* __restrict__ gid) {
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i < n) {
-    const int64_t off = offsets[i];
-    const int64_t room = max_dup - off;
-    const int64_t lim = counts[i] < room ? (int64_t)counts[i] : room;
-    if (lim > 0) {
-      const int64_t rx = rect_min[2 * i];
-      const int64_t ry = rect_min[2 * i + 1];
-      const int64_t rk = rank[i];
-      int64_t s = 0;
-      for (int j = 0; j < kRowCap && s < lim; ++j) {
-        const int32_t p = packed[(int64_t)j * n + i];   // coalesced across threads
-        const int64_t wj = p >> 7;
-        const int64_t row = (ry + j) * grid_x + rx + (p & 127);
-        for (int64_t r = 0; r < wj && s < lim; ++r, ++s) {
-          keys[off + s] = ((row + r) << 32) | rk;
-          gid[off + s] = (int32_t)i;
-        }
-      }
-      walk_rect(kRowCap, s, lim, rect_w[i], rx, ry, rk, grid_x, off, (int32_t)i, keys, gid);
+    int64_t grid_x, int64_t max_dup, int64_t tiles_per_block, int64_t* __restrict__ keys,
+    int32_t* __restrict__ gid) {
+  // Offsets relative to the tile's first slot (within int32: a run is under
+  // 2^31 slots), and ranks (under n < 2^31) as 32-bit words.
+  __shared__ int32_t s_off[kIvItems + 1];
+  __shared__ uint32_t s_rank[kIvItems + 1];
+  __shared__ int32_t s_x[kIvItems + 1], s_y[kIvItems + 1], s_w[kIvItems + 1];
+  __shared__ int32_t s_pk[kRowCap][kIvItems + 1];
+  __shared__ int64_t s_g0;
+  __shared__ int s_before[kWarps];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t total = n > 0 ? offsets[n - 1] + counts[n - 1] : 0;
+  const int64_t slots = total < max_dup ? total : max_dup;  // slots that get an entry
+  const int64_t merged = n + slots;
+  const int64_t items = n + max_dup;                       // merge items, then unused slots
+  const int64_t d_begin = (int64_t)blockIdx.x * tiles_per_block * kIvItems;
+  const int64_t d_end = min64(d_begin + tiles_per_block * kIvItems, items);
+  if (d_begin >= d_end) return;
+  // The Gaussians before the block's first item (one 32-way search), and
+  // whether all of its merge items are Gaussians (a run of culled rows, most
+  // of a trainer's pool): then it has no slot to write.
+  int64_t g0 = n;  // Gaussians before the tile's first item
+  bool only_g = true;
+  if (d_begin < merged) {
+    if (warp == 0) {
+      const int64_t g = merge_split(offsets, n, slots, d_begin);
+      if (lane == 0) s_g0 = g;
+    }
+    __syncthreads();
+    g0 = s_g0;
+    // They are iff the last of them, Gaussian g0 + (dm_end - d_begin) - 1,
+    // precedes item dm_end.
+    const int64_t dm_end = min64(d_end, merged);
+    const int64_t last = g0 + (dm_end - d_begin) - 1;
+    if (last < n) {
+      const int64_t off = offsets[last];
+      only_g = (off < slots ? off : slots) + last < dm_end;
+    } else {
+      only_g = false;
     }
   }
-  fill_unused(i, counts, offsets, n, max_dup, keys, gid);
-}
-
-unsigned grid_for(int64_t n, int64_t max_dup) {
-  const int64_t work = n > max_dup ? n : max_dup;
-  return (unsigned)((work + kThreads - 1) / kThreads);
+  for (int64_t d0 = d_begin; d0 < d_end; d0 += kIvItems) {
+    const int64_t d1 = min64(d0 + kIvItems, d_end);
+    const int64_t dm = min64(d1, merged);
+    if (d0 < dm && !only_g) {
+      // Stage g0 - 1 (its run may enter the tile) and the Gaussians that can
+      // lie among the tile's items; g1, the first after them, is g0 plus the
+      // count of those with min(offset, slots) + g < dm.
+      const int64_t gs = g0 > 0 ? g0 - 1 : 0;
+      const int64_t sl0 = d0 - g0;  // the tile's first slot
+      const int m_hi = (int)(min64(g0 + (dm - d0), n) - gs);
+      __syncthreads();  // the previous tile is done with shared memory
+      int32_t cnt[kIvStage];
+      int before = 0;
+#pragma unroll
+      for (int r = 0; r < kIvStage; ++r) {
+        const int k = threadIdx.x + r * kThreads;
+        cnt[r] = 0;
+        bool pre = false;
+        if (k < m_hi) {
+          const int64_t g = gs + k;
+          const int64_t off = offsets[g];
+          cnt[r] = counts[g];
+          s_off[k] = (int32_t)(off - sl0);
+          pre = g >= g0 && (off < slots ? off : slots) + g < dm;
+        }
+        before += __popc(__ballot_sync(0xffffffffu, pre));
+      }
+      if (lane == 0) s_before[warp] = before;
+      __syncthreads();
+      before = 0;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) before += s_before[w];
+      const int64_t g1 = g0 + before;
+      const int m = (int)(g1 - gs);
+      // Only Gaussians with entries are read further: rect, rank, interval rows.
+#pragma unroll
+      for (int r = 0; r < kIvStage; ++r) {
+        const int k = threadIdx.x + r * kThreads;
+        if (k < m && cnt[r] > 0) {
+          const int64_t g = gs + k;
+          s_rank[k] = (uint32_t)rank[g];
+          s_x[k] = rect_min[2 * g];
+          s_y[k] = rect_min[2 * g + 1];
+          s_w[k] = rect_w[g];
+#pragma unroll
+          for (int j = 0; j < kRowCap; ++j) s_pk[j][k] = packed[(int64_t)j * n + g];
+        }
+      }
+      __syncthreads();
+      const int nsl = (int)(dm - g1 - sl0);  // the tile's slots: sl0 .. sl0 + nsl
+      for (int t = threadIdx.x; t < nsl; t += kThreads) {
+        int a = 0, b = m;  // the last staged k with s_off[k] <= t (s_off[0] <= 0)
+        while (b - a > 1) {
+          const int mid = (a + b) >> 1;
+          if (s_off[mid] <= t) a = mid; else b = mid;
+        }
+        // Slot j of the run: the interval row whose prefix holds it (rows with
+        // w = 0 are stepped over), else a full-width row below them.
+        const int j = t - s_off[a];
+        int row, col;
+        int base = 0, r = 0;
+        int32_t p = 0;
+        for (; r < kRowCap; ++r) {
+          p = s_pk[r][a];
+          if (j < base + (p >> 7)) break;
+          base += p >> 7;
+        }
+        if (r < kRowCap) {
+          row = r;
+          col = (p & 127) + (j - base);
+        } else {
+          const int q = (j - base) / s_w[a];
+          row = kRowCap + q;
+          col = j - base - q * s_w[a];
+        }
+        const int64_t tile = (int64_t)(s_y[a] + row) * grid_x + s_x[a] + col;
+        keys[sl0 + t] = (tile << 32) | s_rank[a];
+        gid[sl0 + t] = (int32_t)(gs + a);
+      }
+      g0 = g1;
+    } else if (d0 < dm) {
+      g0 += dm - d0;  // the tile holds Gaussians only
+    }
+    // Items past the merge are the unused slots slots .. max_dup.
+    for (int64_t i = (d0 > merged ? d0 : merged) + threadIdx.x; i < d1; i += kThreads) {
+      keys[i - n] = kKeyInvalid;
+      gid[i - n] = 0;
+    }
+  }
 }
 
 }  // namespace
@@ -225,12 +320,29 @@ int r3dgw_expand_entries_intervals(const void* counts, const void* offsets,
                                    const void* rect_min, const void* rect_w, const void* rank,
                                    const void* packed, int64_t n, int64_t grid_x,
                                    int64_t max_dup, void* keys, void* gid, void* stream) {
-  const unsigned blocks = grid_for(n, max_dup);
-  if (blocks > 0) {
+  const int64_t tiles = (n + max_dup + kIvItems - 1) / kIvItems;
+  if (tiles > 0) {
+    // One wave of blocks (resident blocks a card, kept per device), each over
+    // an equal run of consecutive tiles.
+    static int64_t waves[64];
+    int dev = 0;
+    cudaGetDevice(&dev);
+    int64_t wave = dev < 64 ? waves[dev] : 0;
+    if (wave == 0) {
+      int sms = 0, per_sm = 0;
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, expand_intervals_kernel, kThreads,
+                                                    0);
+      wave = (int64_t)(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+      if (dev < 64) waves[dev] = wave;
+    }
+    int64_t per_block = (tiles + wave - 1) / wave;
+    if (per_block > kIvTilesPerBlock) per_block = kIvTilesPerBlock;
+    const unsigned blocks = (unsigned)((tiles + per_block - 1) / per_block);
     expand_intervals_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
         (const int32_t*)counts, (const int64_t*)offsets, (const int32_t*)rect_min,
         (const int32_t*)rect_w, (const int64_t*)rank, (const int32_t*)packed, n, grid_x,
-        max_dup, (int64_t*)keys, (int32_t*)gid);
+        max_dup, per_block, (int64_t*)keys, (int32_t*)gid);
   }
   return (int)cudaGetLastError();
 }

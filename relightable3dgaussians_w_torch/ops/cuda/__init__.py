@@ -2,17 +2,19 @@
 
 Each wrapper launches its kernel for a CUDA tensor and counts the launch in its
 module's `launches`; for a CPU tensor it calls the kernel's plain PyTorch
-version, which lives beside the code it replaces (`ops/binning.py`,
-`ops/composite.py`). A build or launch failure raises: there is no fallback.
+version, which lives beside the code it replaces (`ops/preprocess.py`,
+`ops/binning.py`, `ops/composite.py`). A build or launch failure raises:
+there is no fallback.
 
 `KERNEL_COUNTERS` names each kernel's counter; `launch_counts()` reads them all
 and `reset_launches()` sets them all to 0.
 """
 
-from . import expand, segment_sum, tile_composite
+from . import expand, row_intervals, segment_sum, tile_composite
 
 # Each CUDA kernel's launch counter: kernel -> (wrapper module, counter name).
-KERNEL_COUNTERS = {"expand_entries": (expand, "launches"),
+KERNEL_COUNTERS = {"row_intervals": (row_intervals, "launches"),
+                   "expand_entries": (expand, "launches"),
                    "expand_entries_intervals": (expand, "interval_launches"),
                    "composite_forward": (tile_composite, "launches"),
                    "composite_forward_packed": (tile_composite, "packed_launches"),

@@ -34,6 +34,9 @@ KERNELS = {
     # blend and the gradient terms contract.
     "tile_composite": ("tile_composite.cu", []),
     "segment_sum": ("segment_sum.cu", []),
+    # Contraction off: the row-interval chain rounds each product and sum on
+    # its own, as the plain version does (ops/preprocess.py).
+    "row_intervals": ("row_intervals.cu", ["--fmad=false"]),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -39,15 +39,15 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def _check_input(name, t, dtype, shape, dev):
+def _check_input(name, t, dtype, shape, dev, what="expand_entries"):
     if t.device != dev:
-        raise ValueError(f"expand_entries: {name} is on {t.device}, expected {dev}")
+        raise ValueError(f"{what}: {name} is on {t.device}, expected {dev}")
     if t.dtype != dtype:
-        raise TypeError(f"expand_entries: {name} must be {dtype}, got {t.dtype}")
+        raise TypeError(f"{what}: {name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != shape:
-        raise ValueError(f"expand_entries: {name} must have shape {shape}, got {tuple(t.shape)}")
+        raise ValueError(f"{what}: {name} must have shape {shape}, got {tuple(t.shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"expand_entries: {name} must be contiguous")
+        raise ValueError(f"{what}: {name} must be contiguous")
 
 
 def expand_entries(counts: torch.Tensor, offsets: torch.Tensor, rect_min: torch.Tensor,

@@ -11,8 +11,9 @@ they are.
 The opacity-aware rect tightening with `skip_alpha` is kept: at 1/255 it drops
 only (Gaussian, tile) pairs that both compositors skip, so the image is
 unchanged; larger values are the serving LOD knob. `row_intervals` cuts each
-rect further to the ellipse's per-tile-row x-intervals; its counts and packed
-rows equal the JAX package's bitwise.
+rect further to the ellipse's per-tile-row x-intervals (one CUDA kernel on the
+card, `row_intervals_plain` on the CPU); the counts and packed rows equal the
+JAX package's bitwise.
 
 The float outputs (mean2d, conic, depth, cov3d) are differentiable with
 autograd. The radius and tile-rect chain is derivative-dead (every consumer is
@@ -28,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils.graphics import covariance_3d, ndc_to_pixel
+from .cuda import row_intervals as _row_intervals_kernel
 
 
 class PreprocessOut(NamedTuple):
@@ -224,9 +226,19 @@ def _clip(x, lo, hi):
     return torch.minimum(torch.maximum(x, lo), hi)
 
 
-@torch.no_grad()
 def row_intervals(pre: PreprocessOut, opacities: torch.Tensor, tile: int = 16,
                   skip_alpha: float = 1.0 / 255.0):
+    """The row intervals of `row_intervals_plain` in one pass: the row-interval
+    kernel for CUDA tensors (`ops/cuda/row_intervals.py`), the plain version
+    for CPU tensors. Both routes return the counts [N] int32 and the packed
+    rows [H_CAP, N] as int32 (the plain version's float32 values converted),
+    which the binning walks."""
+    return _row_intervals_kernel.row_intervals(pre, opacities, tile, skip_alpha)
+
+
+@torch.no_grad()
+def row_intervals_plain(pre: PreprocessOut, opacities: torch.Tensor, tile: int = 16,
+                        skip_alpha: float = 1.0 / 255.0):
     """Exact per-tile-row x-intervals of each Gaussian's contributing region.
 
     Where alpha = op * exp(power) can reach 1/255 is the ellipse

@@ -16,9 +16,12 @@ from relightable3dgaussians_w_torch.models import gaussians as G
 from relightable3dgaussians_w_torch.models.nets import MLPNet
 from relightable3dgaussians_w_torch.ops import binning, composite, preprocess, rasterize, segment_sum
 from relightable3dgaussians_w_torch.ops.cuda import expand as expand_kernel
+from relightable3dgaussians_w_torch.ops.cuda import row_intervals as row_intervals_kernel
 from relightable3dgaussians_w_torch.ops.cuda import segment_sum as segment_sum_kernel
 from relightable3dgaussians_w_torch.ops.cuda import tile_composite as composite_kernel
 from relightable3dgaussians_w_torch.scripts import selfcheck_train as SC
+
+from _interval_rows import edge_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -408,11 +411,73 @@ def test_train_step_on_card_matches_cpu(dev):
     assert float(new.gauss_state.xyz_grad_accum.max()) > 0
 
 
+def _pre_from_rows(rows, dev):
+    """A PreprocessOut of the row-interval pass's inputs (other fields zero)."""
+    t = {k: torch.as_tensor(v, device=dev) for k, v in rows.items()}
+    n = t["mean2d"].shape[0]
+    z = torch.zeros(n, device=dev)
+    return preprocess.PreprocessOut(t["mean2d"], t["conic"], z, z.int(), t["tiles_touched"],
+                                    t["rect_min"], t["rect_max"], torch.zeros((n, 6), device=dev))
+
+
+def test_row_intervals_kernel_matches_plain(dev):
+    """The row-interval kernel against the plain pass, bitwise on every row:
+    the hand-made edge rows (NaN / inf centers, opacity under 1/255,
+    degenerate conics, rects taller than 8 rows or of width 0, culled rows
+    with nonzero rects, intervals clamped at 127, int32 wrap-around) with
+    random rows, and a frame with one axis stretched 8x, as is and at a
+    serving LOD skip_alpha."""
+    rows = edge_rows(n_random=50_000, seed=1)
+    cases = [(_pre_from_rows(rows, dev), torch.as_tensor(rows["opacity"], device=dev), 1 / 255)]
+    p, s = synthetic.synthetic_scene(n=20_000, n_sky=2_000, device=dev)
+    cam = synthetic.camera(256, 256, device=dev)
+    opa = G.get_opacity(p, s)
+    scl = G.get_scaling(p) * torch.tensor([8.0, 1.0, 1.0], device=dev)
+    for skip in (1 / 255, 0.0625):
+        pre = preprocess.preprocess(G.get_xyz(p, s), scl, G.get_rotation(p), cam.viewmat,
+                                    cam.projmat, cam.tan_fovx, cam.tan_fovy, 256, 256, 16,
+                                    active=s.alive, opacities=opa[:, 0], skip_alpha=skip)
+        cases.append((pre, opa, skip))
+    for pre, op, skip in cases:
+        before = row_intervals_kernel.launches
+        counts, packed = preprocess.row_intervals(pre, op, skip_alpha=skip)
+        torch.cuda.synchronize()
+        assert row_intervals_kernel.launches == before + 1
+        p_counts, p_packed = preprocess.row_intervals_plain(pre, op, skip_alpha=skip)
+        assert counts.dtype == packed.dtype == torch.int32 and packed.shape == p_packed.shape
+        assert torch.equal(counts, p_counts)
+        assert torch.equal(packed, p_packed.to(torch.int32))
+        assert int((counts > 0).sum()) > 0
+
+
+def _interval_runs(n, gx, seed):
+    """Hand-made interval expansion inputs at scale: n Gaussians, 70% of them
+    with no entry (the second half all culled, a long stretch), runs from 1
+    to ~1,500 slots (rects up to 40 x 40 tiles, empty rows among the first
+    8), consistent counts and packed rows, a random depth rank."""
+    rng = np.random.RandomState(seed)
+    w = rng.randint(1, 41, n)
+    h = rng.randint(1, 41, n)
+    txl = rng.randint(0, w[None, :], (8, n))
+    wj = rng.randint(0, w[None, :] - txl + 1) * (rng.rand(8, n) < 0.8)
+    wj = np.where(np.arange(8)[:, None] < h[None, :], wj, 0)
+    packed = np.where(wj > 0, txl + 128 * wj, 0)
+    counts = wj.sum(0) + np.maximum(h - 8, 0) * w
+    counts[(rng.rand(n) < 0.4) | (np.arange(n) >= n // 2)] = 0
+    offsets = np.cumsum(counts) - counts
+    t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device="cuda")
+    x0, y0 = rng.randint(0, gx - 40, n), rng.randint(0, gx - 40, n)
+    return (t(counts, torch.int32), t(offsets, torch.int64), t(np.stack([x0, y0], 1), torch.int32),
+            t(w, torch.int32), t(rng.permutation(n), torch.int64), gx), t(packed, torch.int32)
+
+
 def test_expand_intervals_kernel_matches_plain(dev):
     """Kernel A-int against the plain interval walk, bitwise: on a frame with
     one axis stretched 8x (rows taller than 8 tiles among them), with and
-    without a budget overflow, and on hand-made rows (empty rows between
-    nonempty ones, a tall Gaussian, a culled row)."""
+    without a budget overflow; on hand-made rows (empty rows between
+    nonempty ones, a tall Gaussian, a culled row); and on 200,000 hand-made
+    runs that span many blocks with long stretches of zero-count Gaussians,
+    at budgets of 0, 1, below the demand, just below it and above it."""
     p, s = synthetic.synthetic_scene(n=20_000, n_sky=2_000, device=dev)
     cam = synthetic.camera(256, 256, device=dev)
     opa = G.get_opacity(p, s)[:, 0]
@@ -429,7 +494,7 @@ def test_expand_intervals_kernel_matches_plain(dev):
     rect_w = torch.clamp_min(pre.rect_max[:, 0] - pre.rect_min[:, 0], 1).int().contiguous()
     total = int(counts.sum())
     cases = [(counts, offsets, pre.rect_min.contiguous(), rect_w, rank, 16, max_dup,
-              packed.to(torch.int32).contiguous()) for max_dup in (total + 1000, total // 2)]
+              packed) for max_dup in (total + 1000, total // 2)]
     packed_h = torch.zeros((8, 4), dtype=torch.int32)
     packed_h[0, 0], packed_h[2, 0], packed_h[5, 0] = 1 + 128 * 2, 128 * 3, 3 + 128
     packed_h[:, 1] = 128 * 4
@@ -441,13 +506,17 @@ def test_expand_intervals_kernel_matches_plain(dev):
         torch.tensor([[2, 1], [0, 0], [5, 3], [1, 2]], dtype=torch.int32),
         torch.tensor([6, 4, 3, 2], dtype=torch.int32), torch.tensor([3, 0, 2, 1]), 20, 40,
         packed_h)))
+    args, packed_r = _interval_runs(200_000, 120, seed=2)
+    total_r = int(args[0].sum())
+    for max_dup in (0, 1, total_r // 3, total_r - 5, total_r + 3000):
+        cases.append((*args, max_dup, packed_r))
     for *args, packed_i in cases:
         before = expand_kernel.interval_launches
         keys, gid = expand_kernel.expand_entries(*args, packed=packed_i)
         torch.cuda.synchronize()
         assert expand_kernel.interval_launches == before + 1
         p_keys, p_gid = binning.expand_entries_plain(*args, packed=packed_i)
-        assert torch.equal(keys, p_keys) and torch.equal(gid, p_gid)
+        assert torch.equal(keys, p_keys) and torch.equal(gid, p_gid), args[-1]
 
 
 def test_interval_render_matches_rect_render(dev):

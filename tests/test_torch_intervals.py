@@ -3,11 +3,11 @@
 The same numpy scene (tests/test_row_intervals.py's anisotropic scene: one
 axis of every Gaussian stretched 6x, so rects overshoot the ellipses) goes
 through the JAX functions and the port's (`device="cpu"`, the plain versions of
-the CUDA kernels). `row_intervals` and the interval binning are integer
-results and must be equal bitwise; the render with intervals is held to the
-JAX test's gates against the rect render (2e-6 absolute on the image, 5e-4 of
-the largest gradient), and to the JAX package's kernel tolerance against the
-JAX render.
+the CUDA kernels). `row_intervals` (with hand-made edge rows appended) and the
+interval binning are integer results and must be equal bitwise; the render
+with intervals is held to the JAX test's gates against the rect render (2e-6
+absolute on the image, 5e-4 of the largest gradient), and to the JAX
+package's kernel tolerance against the JAX render.
 """
 
 import numpy as np
@@ -23,8 +23,10 @@ from relightable3dgaussians_w_tpu.ops.rasterize import rasterize as jrasterize
 
 from relightable3dgaussians_w_torch.ops import binning, preprocess, rasterize
 from relightable3dgaussians_w_torch.ops.cuda import expand as expand_kernel
+from relightable3dgaussians_w_torch.ops.cuda import row_intervals as row_intervals_kernel
 
-from test_row_intervals import _aniso_scene, _pre as _jax_pre
+from _interval_rows import edge_rows
+from test_row_intervals import _aniso_scene, _pre as _jax_pre_eager
 from test_torch_ops import assert_image_close, to_t, torch_cam
 import _torch_threads
 
@@ -37,18 +39,55 @@ def _port_pre(jp):
     return preprocess.PreprocessOut(*[to_t(x) for x in jp])
 
 
+# JAX's preprocess, jitted: both packages take its output as their input, so
+# its rounding is not under test, and one compile per scene size replaces an
+# op-by-op one.
+_jax_pre = jax.jit(_jax_pre_eager, static_argnums=(2,))
+
+# JAX's row intervals compiled once, at XLA's optimization level 0, which rounds
+# each op on its own as eager JAX and the port do (one compile instead of an
+# op-by-op one for every primitive of the chain).
+_jrow_intervals_o0 = jax.jit(jrow_intervals, static_argnums=(2,), compiler_options={
+    "xla_backend_optimization_level": 0})
+
+
+def _with_edge_rows(jp, opacities):
+    """The scene's JAX PreprocessOut and opacities with the hand-made rows of
+    tests/_interval_rows.py appended (their other fields zero)."""
+    e = edge_rows()
+    k = e["mean2d"].shape[0]
+    extra = dict(e, depth=np.zeros(k, np.float32), radius=np.zeros(k, np.int32),
+                 cov3d=np.zeros((k, 6), np.float32))
+    jp = type(jp)(**{f: jnp.concatenate([getattr(jp, f), jnp.asarray(extra[f])])
+                     for f in jp._fields})
+    return jp, jnp.concatenate([opacities, jnp.asarray(e["opacity"])])
+
+
 @pytest.mark.parametrize("seed", [3, 4, 5])
 def test_row_intervals_match_jax_bitwise(seed):
+    """The plain row intervals equal JAX's bitwise on the scene plus the
+    hand-made edge rows (NaN / inf centers, opacity under 1/255, degenerate
+    conics, rects taller than 8 rows, of width 0, culled rows, intervals
+    clamped at 127, int32 wrap-around); `preprocess.row_intervals` on CPU
+    tensors takes the plain route (no kernel launch) and returns its rows as
+    int32."""
     arrs, cam, cfg = _aniso_scene(seed=seed)
-    jp = _jax_pre(arrs, cam, cfg)
-    j_counts, j_packed = jrow_intervals(jp, arrs["opacities"], cfg.tile)
-    t_counts, t_packed = preprocess.row_intervals(_port_pre(jp), to_t(arrs["opacities"]),
-                                                  cfg.tile)
+    jp0 = _jax_pre(arrs, cam, cfg)
+    jp, opac = _with_edge_rows(jp0, arrs["opacities"])
+    j_counts, j_packed = _jrow_intervals_o0(jp, opac, cfg.tile)
+    pre, op = _port_pre(jp), to_t(opac)
+    t_counts, t_packed = preprocess.row_intervals_plain(pre, op, cfg.tile)
     assert t_counts.dtype == torch.int32 and t_packed.dtype == torch.float32
     np.testing.assert_array_equal(t_counts.numpy(), np.asarray(j_counts))
     np.testing.assert_array_equal(t_packed.numpy(), np.asarray(j_packed))
+    before = row_intervals_kernel.launches
+    d_counts, d_packed = preprocess.row_intervals(pre, op, cfg.tile)
+    assert row_intervals_kernel.launches == before
+    assert d_counts.dtype == torch.int32 and d_packed.dtype == torch.int32
+    assert torch.equal(d_counts, t_counts) and torch.equal(d_packed, t_packed.to(torch.int32))
     # The scene cuts entries: the intervals are not all full rects.
-    assert int(t_counts.sum()) < int(jp.tiles_touched.sum()) * 0.95
+    n = jp0.tiles_touched.shape[0]
+    assert int(t_counts[:n].sum()) < int(jp0.tiles_touched.sum()) * 0.95
 
 
 @pytest.mark.parametrize("seed", [3, 4])
@@ -64,6 +103,11 @@ def test_interval_binning_matches_jax(seed):
                                            use_expand_kernel=False, intervals=i))(jp, iv)
     tb = binning.bin_gaussians(_port_pre(jp), cfg.grid_x, cfg.grid_y, 1 << 14,
                                intervals=(to_t(iv[0]), to_t(iv[1])))
+    # The port's own int32 rows (`preprocess.row_intervals`) bin the same.
+    ib = binning.bin_gaussians(_port_pre(jp), cfg.grid_x, cfg.grid_y, 1 << 14,
+                               intervals=preprocess.row_intervals(
+                                   _port_pre(jp), to_t(arrs["opacities"]), cfg.tile))
+    assert all(torch.equal(a, b) for a, b in zip(ib, tb))
     assert int(tb.num_entries) == int(ja.num_entries) and int(tb.overflow) == 0
     counts = (tb.tile_end - tb.tile_start).numpy()
     np.testing.assert_array_equal(counts, np.asarray(jax.jit(

@@ -55,6 +55,11 @@ def _jax_pre(arrs, cam, cfg, skip_alpha=1.0 / 255.0):
                        cfg.tile, opacities=arrs["opacities"], skip_alpha=skip_alpha)
 
 
+# JAX's binning, jitted: its outputs are integers (a sort, sums and searches),
+# the same bits compiled or op by op, and one compile replaces an op-by-op one.
+_jbin = jax.jit(jbin_gaussians, static_argnums=(1, 2, 3))
+
+
 @pytest.mark.parametrize("seed,skip_alpha", [(0, 1.0 / 255.0), (1, 1.0 / 255.0), (2, 1.0 / 16.0)])
 def test_preprocess_matches_jax(seed, skip_alpha):
     arrs, cam, cfg, _ = make_scene(n=300, seed=seed)
@@ -79,7 +84,7 @@ def test_binning_matches_jax(seed):
     every tile the same Gaussian sequence as the JAX bin_gaussians."""
     arrs, cam, cfg, _ = make_scene(n=300, seed=seed)
     jp = _jax_pre(arrs, cam, cfg)
-    jb = jbin_gaussians(jp, cfg.grid_x, cfg.grid_y, cfg.max_dup)
+    jb = _jbin(jp, cfg.grid_x, cfg.grid_y, cfg.max_dup)
     tb = binning.bin_gaussians(preprocess.PreprocessOut(*[to_t(x) for x in jp]),
                                cfg.grid_x, cfg.grid_y, cfg.max_dup)
     assert int(tb.num_entries) == int(jb.num_entries) > 0
@@ -131,7 +136,7 @@ def test_expand_plain_matches_numpy_oracle(max_dup):
 def _jax_entries(seed, n=300):
     arrs, cam, cfg, _ = make_scene(n=n, seed=seed)
     jp = _jax_pre(arrs, cam, cfg)
-    jb = jbin_gaussians(jp, cfg.grid_x, cfg.grid_y, cfg.max_dup)
+    jb = _jbin(jp, cfg.grid_x, cfg.grid_y, cfg.max_dup)
     feat = j_gather_features(jp, jb, arrs["opacities"], arrs["colors"], None)
     return arrs, cfg, jb, feat
 
