@@ -1,6 +1,6 @@
 """Smoke run of the torch port's serving path, training step, trainer, evaluation,
 pretraining, library and parallel modules, the training self-check, the
-serving demo and the measurement scripts on one CUDA card.
+serving demo, the measurement scripts and the scaling harness on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -22,7 +22,8 @@ Gaussians, random MLP weights from a seed), then:
             TFLOP/s float32; the compositor's operations counted per (pixel,
             entry) pair the walk visits: the full cost where the entry
             contributes, the power test, or the power and alpha tests, where
-            it is skipped);
+            it is skipped; its bytes: the entry rows a tile visits before
+            its last pixel terminates, not every entry of the tile);
 3. stages:  the frame's stages timed one by one with CUDA events;
 4. serve:   frames through the port's ViewerServer (json protocol on
             127.0.0.1) sweeping yaw over -10..10 degrees, each checked for its
@@ -180,6 +181,31 @@ Gaussians, random MLP weights from a seed), then:
             Gaussians, 512x512, the card against the plain path on the CPU:
             ok) and the train-step bench at its defaults (500,000 Gaussians,
             800x800: zero overflow).
+            After it, in process and still before any NCCL group, the
+            scaling_kernels phase: A, B at C = 13, C, P and D against their
+            plain versions on the inputs the scaling harness's data-parallel
+            step gives them at both of the sizes below (`bench_scaling.build`
+            for one rank, whose step renders and differentiates batch row 0
+            through `train_step.loss_and_grads`; at the flagship size ~32M
+            entries in a budget of ~41M slots), with times and bounds
+            ("at_scaling_shapes" in the kernel table).
+
+18. scaling: (after the serving demo, before the parallel phase's rank
+            groups) the data-parallel scaling harness
+            (`scripts/bench_scaling.py`) as a subprocess, whose NCCL ranks
+            (1, 2, 4, ... up to the visible cards) are processes of their own,
+            at the JAX script's defaults (20,000 + 512 sky Gaussians, 128x128,
+            budget 65,536, 10 timed steps) and at 1,010,000 + 512 sky Gaussians
+            / 800x800 with the budget sized from the demand: each n with zero
+            overflow, finite losses, a device time per step and launches of
+            A, P, B, C and D in its ranks (the kernel table's "scaling" path).
+            With one card this is n = 1 alone, a per-card baseline of the DP
+            step and not a scaling number; the record says so.
+
+The serve phase also runs `rasterize_aux` (the untightened rects, as in JAX)
+on the first frame's inputs on the card and on the CPU: the card's binning
+bitwise against the plain binning of its own preprocess, its preprocess
+against the CPU's within AUX_*_TOL.
 
 Depth cuts: the trainer phase runs 60 of the default 40,000 iterations, the
 eval phase EVAL_ITERS = 30 and RELIT_STEPS = 8 of the relighting CLI's 30
@@ -205,7 +231,6 @@ import datetime
 import json
 import os
 import shutil
-import socket
 import subprocess
 import sys
 import time
@@ -237,14 +262,17 @@ from relightable3dgaussians_w_torch.ops.cuda import build, launch_counts, reset_
 from relightable3dgaussians_w_torch.ops.cuda import expand as expand_kernel
 from relightable3dgaussians_w_torch.ops.cuda import row_intervals as row_intervals_kernel
 from relightable3dgaussians_w_torch.ops.cuda import segment_sum as segment_sum_kernel
+from relightable3dgaussians_w_torch.ops.binning import BinningOut
+from relightable3dgaussians_w_torch.ops.preprocess import PreprocessOut
 from relightable3dgaussians_w_torch.ops.cuda import tile_composite as composite_kernel
+from relightable3dgaussians_w_torch.parallel.multihost import free_port
 from relightable3dgaussians_w_torch.parallel import collectives as C
 from relightable3dgaussians_w_torch.parallel import data_parallel as DP
 from relightable3dgaussians_w_torch.parallel import gauss_shard as GS
 from relightable3dgaussians_w_torch.parallel import tile_parallel as TP
 from relightable3dgaussians_w_torch.parallel.mesh import make_mesh
 from relightable3dgaussians_w_torch.renderer import compute_colors, render, render_rgb
-from relightable3dgaussians_w_torch.scripts import bench, selfcheck_train, serve_demo
+from relightable3dgaussians_w_torch.scripts import bench, bench_scaling, selfcheck_train, serve_demo
 from relightable3dgaussians_w_torch.scripts.serve_demo import yaw
 from relightable3dgaussians_w_torch.trainer import size_entry_budget
 from relightable3dgaussians_w_torch.utils.hdr import write_hdr
@@ -366,9 +394,12 @@ def pair_counts(feat, tile_start, tile_end, grid_x):
     pairs: `visited` before each pixel terminates (the terminating pair
     included), of which `contributing` (blended) and `power_skipped` (power > 0;
     counted where exp(min(power, 0)) == 1, which also takes in the rare
-    power <= 0 that rounds to G = 1, so the count errs low)."""
+    power <= 0 that rounds to G = 1, so the count errs low); and
+    `entries_read`, the entry rows a tile needs before its last pixel
+    terminates (each pixel visits a prefix of the tile's entries), summed
+    over the tiles."""
     counts = tile_end - tile_start
-    out = dict(visited=0, contributing=0, power_skipped=0)
+    out = dict(visited=0, contributing=0, power_skipped=0, entries_read=0)
     for t0, t1, length in composite._batches(counts.cpu().numpy(), 256, 1 << 24):
         tids = torch.arange(t0, t1, device=feat.device)
         alpha, aux = composite._tile_batch(feat, tile_start[t0:t1], counts[t0:t1], tids,
@@ -376,6 +407,7 @@ def pair_counts(feat, tile_start, tile_end, grid_x):
         _, p_prev, include, _, _ = composite._transmittance(alpha)
         visited = (p_prev >= composite.T_EPS) & aux["valid"][..., None]
         out["visited"] += int(visited.sum())
+        out["entries_read"] += int(visited.any(dim=2).sum())
         out["contributing"] += int((visited & include & ~aux["skip"]).sum())
         out["power_skipped"] += int((visited & aux["skip"] & (aux["G"] == 1.0)).sum())
     return out
@@ -538,8 +570,51 @@ def serve_phase(host, cam0, ref_img, dev):
           "first_frame_ms": result[0][0] * 1e3,
           "steady_ms_per_frame_mean": float(np.mean(steady)),
           "steady_ms_per_frame_median": float(np.median(steady)),
-          "first_frame_bytes_off_by_one": int((diff > 0).sum())}
+          "first_frame_bytes_off_by_one": int((diff > 0).sum()),
+          "rasterize_aux": rasterize_aux_check(host, dev)}
     return launches, result, record
+
+
+# rasterize_aux's preprocess on the card against the CPU's: the largest
+# difference of a projected center (pixels) and of a depth (relative) over the
+# Gaussians both keep, and the share of Gaussians whose tile count differs.
+AUX_MEAN2D_TOL, AUX_DEPTH_TOL, AUX_TILES_SHARE_TOL = 1e-2, 1e-5, 1e-4
+
+
+def rasterize_aux_check(host, dev):
+    """`rasterize_aux` (preprocess and binning of the untightened rects, no
+    compositing) on the first served frame's inputs, on the card and on the
+    CPU's plain route: the card's binning bitwise against the CPU's plain
+    binning of the card's own preprocess (kernels A and P through the public
+    call), and the card's preprocess against the CPU's within AUX_*_TOL, the
+    two routes' entry counts side by side. Outside the serve path's launch
+    count."""
+    cam, xyz, scl, quat, _, _ = frame_inputs(host, -10.0, dev)
+    alive, rcfg = host.state.gauss_state.alive, host.rcfg
+    pre, bins = rasterize.rasterize_aux(xyz, scl, quat, cam, rcfg, active=alive, device=dev)
+    cpu = lambda xs: [x.cpu() for x in xs]
+    want = binning.bin_gaussians(PreprocessOut(*cpu(pre)), rcfg.grid_x, rcfg.grid_y,
+                                 rcfg.max_dup)
+    differ = [k for k, a, b in zip(BinningOut._fields, cpu(bins), want) if not torch.equal(a, b)]
+    if differ:
+        raise AssertionError(f"rasterize_aux on the card: binning differs from the plain "
+                             f"binning of its preprocess in {differ}")
+    pre_p, bins_p = rasterize.rasterize_aux(*cpu((xyz, scl, quat)), rasterize.CameraMatrices(*cpu(cam)),
+                                            rcfg, active=alive.cpu(), device="cpu")
+    pre_c = PreprocessOut(*cpu(pre))
+    both = (pre_c.radius > 0) & (pre_p.radius > 0)
+    mean2d_err = float((pre_c.mean2d - pre_p.mean2d)[both].abs().max())
+    depth_err = float(((pre_c.depth - pre_p.depth) / pre_p.depth)[both].abs().max())
+    tiles_share = float((pre_c.tiles_touched != pre_p.tiles_touched).float().mean())
+    rec = {"binning_bitwise_to_plain": True, "frame": "yaw -10", "rects": "untightened",
+           "entries": int(bins.num_entries), "entries_cpu": int(bins_p.num_entries),
+           "visible": int((pre.radius > 0).sum()), "visible_cpu": int((pre_p.radius > 0).sum()),
+           "overflow": int(bins.overflow), "mean2d_max_abs_err_px": mean2d_err,
+           "depth_max_rel_err": depth_err, "tiles_touched_differ_share": tiles_share}
+    if not (mean2d_err <= AUX_MEAN2D_TOL and depth_err <= AUX_DEPTH_TOL
+            and tiles_share <= AUX_TILES_SHARE_TOL):
+        raise AssertionError(f"rasterize_aux: the card's preprocess against the CPU's: {rec}")
+    return rec
 
 
 def serve_packed_phase(host, cam0, exact, exact_record, dev):
@@ -598,9 +673,9 @@ def serve_packed_phase(host, cam0, exact, exact_record, dev):
     entries = int(b.num_entries)
     pairs = pair_counts(deq, b.tile_start, b.tile_end, gx)
     T, P = gx * gy, 256
-    k_bound = bound(entries * 8 * 4 + T * 2 * 8 + 3 * 4 + T * P * 4 * 4,
+    k_bound = bound(pairs["entries_read"] * 8 * 4 + T * 2 * 8 + 3 * 4 + T * P * 4 * 4,
                     compositor_ops(composite_ops_per_pair(3), pairs)
-                    + UNPACK_OPS_PER_ROW * entries)
+                    + UNPACK_OPS_PER_ROW * pairs["entries_read"])
     steady = [t * 1e3 for t, _ in result[1:]]
     record = {"phase": "serve_packed", "frames": FRAMES, "resolution": [RES, RES],
               "entries_per_frame": [f["entries"] for f in per_frame], "overflow": 0,
@@ -746,10 +821,11 @@ def graph_inputs(forward, leaves, n, what):
                 ids=segment_sum.layout_ids(bounds, order, feat.shape[0]))
 
 
-def step_inputs(state, cam, gt, sky, occ, uid, mlp, cfg, rcfg, bg, dev):
+def step_inputs(state, cam, gt, sky, occ, uid, mlp, cfg, rcfg, bg, dev, draws=None):
     """The kernels' inputs on one training step of `state` (`graph_inputs` of
-    the port's own `forward_loss`)."""
-    draws = TS.make_draws(torch.Generator(device=dev).manual_seed(0), mlp, cfg)
+    the port's own `forward_loss`), with `draws` (default: drawn from seed 0)."""
+    if draws is None:
+        draws = TS.make_draws(torch.Generator(device=dev).manual_seed(0), mlp, cfg)
     params = TS.tree_map(lambda p: p.detach().requires_grad_(True), state.params)
     n = state.gauss_state.alive.shape[0]
     probe = torch.zeros((n, 2), device=dev, requires_grad=True)
@@ -762,10 +838,11 @@ def step_inputs(state, cam, gt, sky, occ, uid, mlp, cfg, rcfg, bg, dev):
     return graph_inputs(forward, TS.tree_leaves(params) + [probe], n, "the training frame")
 
 
-def hold_step_kernels(x, rcfg, dev):
+def hold_step_kernels(x, rcfg, dev, plain_iters=3):
     """Kernels B (C = 13 on a training step), C, P and D on one call's inputs
     (`step_inputs`, `graph_inputs`) against their plain versions, with times and bounds:
-    (table rows, record)."""
+    (table rows, record). The plain compositor is timed over `plain_iters`
+    calls."""
     feat, ts_, te_, bg, rgb, tfin = (x[k] for k in ("feat", "tile_start", "tile_end", "bg",
                                                     "rgb", "tfin"))
     g_rgb, g_tfin, d_rows, gid, n = (x[k] for k in ("g_rgb", "g_tfin", "d_rows", "ids", "n"))
@@ -774,7 +851,8 @@ def hold_step_kernels(x, rcfg, dev):
     T, P = gx * gy, 256
     entries = x["entries"]
 
-    b_row, b_rec, _ = hold_forward((feat, ts_, te_, bg, gx, gy), f"composite_forward at C = {C}")
+    b_row, b_rec, _ = hold_forward((feat, ts_, te_, bg, gx, gy), f"composite_forward at C = {C}",
+                                   plain_iters)
     pairs = b_rec["pairs"]
 
     # C: compositor backward
@@ -803,8 +881,10 @@ def hold_step_kernels(x, rcfg, dev):
     c_err = float((d_k - d_p).abs().max())
     c_ms = median_ms(lambda: composite_kernel.composite_backward(*args), 10)
     c_plain_ms = median_ms(lambda: composite.composite_backward(
-        feat, ts_, te_, bg, gx, gy, g_rgb, g_tfin), 3)
-    c_bound = bound(entries * feat.shape[1] * 4 * 2 + T * 2 * 8 + T * P * (C + 3) * 4,
+        feat, ts_, te_, bg, gx, gy, g_rgb, g_tfin), plain_iters)
+    # The entry rows a tile visits are read, every entry's gradient row written.
+    c_bound = bound((pairs["entries_read"] + entries) * feat.shape[1] * 4 + T * 2 * 8
+                    + T * P * (C + 3) * 4,
                     compositor_ops(backward_ops_per_pair(C), pairs))
 
     # P: the binning's permutation kernel, on the sort this step's layout
@@ -1544,9 +1624,10 @@ def write_eval_inputs(data_root: Path):
     return env_path
 
 
-def hold_forward(call, label):
+def hold_forward(call, label, plain_iters=3):
     """Kernel B on one call's inputs against its plain version (image tolerance
-    on the tiles), with times and bound: (row fields, record, kernel output)."""
+    on the tiles), with times (the plain version's over `plain_iters` calls)
+    and bound: (row fields, record, kernel output)."""
     feat, ts_, te_, bg, gx, gy = call
     C = feat.shape[1] - 6
     out_k = composite_kernel.composite_forward(feat, ts_, te_, bg, gx, gy)
@@ -1557,11 +1638,13 @@ def hold_forward(call, label):
     err = check_image(out_k[0], out_p[0], f"{label} image")
     tfin_err = check_image(out_k[1], out_p[1], f"{label} final transmittance")
     k_ms = median_ms(lambda: composite_kernel.composite_forward(feat, ts_, te_, bg, gx, gy), 20)
-    p_ms = median_ms(lambda: composite.composite_forward(feat, ts_, te_, bg, gx, gy), 3)
+    p_ms = median_ms(lambda: composite.composite_forward(feat, ts_, te_, bg, gx, gy),
+                     plain_iters)
     entries = int((te_ - ts_).sum())
     pairs = pair_counts(feat, ts_, te_, gx)
     T, P = gx * gy, 256
-    b_bound = bound(entries * feat.shape[1] * 4 + T * 2 * 8 + C * 4 + T * P * (C + 1) * 4,
+    b_bound = bound(pairs["entries_read"] * feat.shape[1] * 4 + T * 2 * 8 + C * 4
+                    + T * P * (C + 1) * 4,
                     compositor_ops(composite_ops_per_pair(C), pairs))
     row = dict(max_abs_err=err[0], ms=k_ms, plain_ms=p_ms, bound_ms=b_bound[0],
                bound_by=b_bound[1], library_ms=None)
@@ -2050,6 +2133,89 @@ def serve_demo_phase():
     return dict(launches), {"phase": "serve_demo", **records}
 
 
+# The data-parallel scaling harness (scripts/bench_scaling.py): the JAX
+# script's defaults, and the flagship size with the entry budget sized from the
+# demand (--max-dup 0). The kernels every run of the DP step launches.
+SCALING_SIZES = {"jax_defaults": (20_000, 128, 1 << 16), "flagship": (1_010_000, RES, 0)}
+# The fields of a kernel's row that were measured on some inputs.
+MEASURED = ("max_abs_err", "ms", "event_ms", "ms_parts", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+SCALING_PATH = ("expand_entries", "permute_entries", "composite_forward", "composite_backward",
+                "segment_sum_rows")
+
+
+def scaling_kernels_phase(dev):
+    """Kernels A, B (C = 13), C, P and D against their plain versions, with
+    times and bounds, on the inputs the scaling harness's DP step gives them
+    at each size of SCALING_SIZES: `bench_scaling.build` for one rank, whose
+    step renders and differentiates batch row 0 through
+    `train_step.loss_and_grads`, recorded here by `step_inputs` on the same
+    state, camera, target, masks and draws. In process, before any NCCL
+    group. Returns ({kernel: {size: measured fields}}, record)."""
+    rows, record = {}, {"phase": "scaling_kernels"}
+    for size, (n_gauss, res, max_dup) in SCALING_SIZES.items():
+        s = bench_scaling.build(1, n_gauss, res, max_dup, dev)
+        b = s.batch
+        x = step_inputs(s.state, b.camera(0), b.gt_image[0], b.sky_mask[0],
+                        b.occluders_mask[0], b.uid[0], s.mlp, s.cfg, s.rcfg, s.bg, dev,
+                        draws=s.draws[0])
+        a_row, a_rec = hold_expansion(x["expand"], f"scaling harness step, {size}")
+        if a_row["name"] != "expand_entries":
+            raise AssertionError(f"scaling harness step, {size}: the binning walked row "
+                                 "intervals, not rects")
+        # The plain compositor takes 4-10 s a call at the flagship's ~32M entries.
+        table, rec = hold_step_kernels(x, s.rcfg, dev, plain_iters=1)
+        for row in [a_row] + table:
+            rows.setdefault(row["name"], {})[size] = {k: row[k] for k in MEASURED if k in row}
+        record[size] = {"scene_gaussians": n_gauss + bench_scaling.N_SKY,
+                        "resolution": [res, res],
+                        "max_dup": s.rcfg.max_dup, "expand": a_rec, **rec}
+        del s, b, x, table
+        torch.cuda.empty_cache()
+    return rows, record
+
+
+def scaling_phase():
+    """The scaling harness in its own process (its ranks in theirs: no NCCL
+    group of this process can hide kernels from a profiler there) at each
+    size of SCALING_SIZES, NCCL ranks 1, 2, 4, ... up to the visible cards:
+    every n with zero overflow, finite losses and launches of A, P, B, C and
+    D (summed over its ranks). One card gives n = 1 alone: a per-card
+    baseline of the DP step, not a scaling number."""
+    cards = torch.cuda.device_count()
+    want_n = [1 << i for i in range(cards.bit_length())]
+    runs, launches = {}, collections.Counter()
+    for name, (n_gauss, res, max_dup) in SCALING_SIZES.items():
+        t0 = time.perf_counter()
+        rc, log, err = run_module(SCRIPTS + "bench_scaling",
+                                  ["--n-gauss", str(n_gauss), "--res", str(res), "--max-dup",
+                                   str(max_dup), "--ranks", str(cards), "--backend", "nccl"])
+        if rc != 0:
+            raise AssertionError(f"bench_scaling {name}: exit {rc}:\n{(log + err)[-3000:]}")
+        out = json.loads(log.strip().splitlines()[-1])
+        entries = out["scaling"]
+        if sorted(map(int, entries)) != want_n or "shared_card" in out:
+            raise AssertionError(f"bench_scaling {name}: ran n = {sorted(entries)} on {cards} "
+                                 f"card(s)")
+        for n, e in entries.items():
+            missing = [k for k in SCALING_PATH if e["launches"][k] < 1]
+            if (e["overflow"] != 0 or not np.isfinite([e["loss"], e["last_loss"]]).all()
+                    or not e["device_ms_per_step"] > 0
+                    or missing or e["backend"] != "nccl" or e["ranks_per_card"] != 1):
+                raise AssertionError(f"bench_scaling {name} n = {n}: {e} (no launch of "
+                                     f"{missing})")
+            launches.update(e["launches"])
+        runs[name] = dict(out, process_wall_s=time.perf_counter() - t0,
+                          log=[line for line in log.splitlines()[:-1]])
+    record = {"phase": "scaling", "cards": cards, "runs": runs,
+              "launches": {k: launches[k] for k in KERNELS}}
+    if cards < 2:
+        record["not_measured"] = (f"n >= 2: the machine has {cards} card; NCCL refuses two "
+                                  "ranks on one card, so n = 1 is a per-card baseline of the "
+                                  "DP step, not a scaling number")
+    return dict(launches), record
+
+
 # The measurement scripts (scripts/bench.py, stage_pie.py, parity.py,
 # bench_train_step.py): each bench case's own knobs (the rest at the script's
 # defaults: 1,000,000 Gaussians, 800x800, 10 timed calls) and the kernels it
@@ -2196,11 +2362,6 @@ RANK_TIMEOUT_S = 600                    # a rank group's wait; every rank is kil
 RANK_DEVICE = "cuda:0"                  # every rank of (c) and (d) shares the one card
 GRAD_TOL = 5e-3
 
-
-def free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def grad_errs(got, want):
@@ -2637,6 +2798,9 @@ def main() -> int:
     bench_launches, bench_rows, record = bench_phase(dev, smi_line)
     report({**record, "wall_s": time.perf_counter() - t0})
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    scaling_rows, record = scaling_kernels_phase(dev)
+    report({**record, "wall_s": time.perf_counter() - t0})
 
     ts = TrainSetup(host, cam0, dev)
     a_step_row, train_table, record = train_kernels_phase(ts, dev)
@@ -2670,6 +2834,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     demo_launches, record = serve_demo_phase()
     report(record)
+    t0 = time.perf_counter()
+    scaling_launches, record = scaling_phase()
+    report({**record, "wall_s": time.perf_counter() - t0})
 
     # The parallel phase's rank groups, with this process's device memory freed.
     parallel_launches, record = parallel_phase_ranks(dev)
@@ -2689,25 +2856,28 @@ def main() -> int:
     # pretraining (A or A-int, P, B at C = 13, C, D) and the 4 ranks of the
     # parallel phase's train CLI, summed (A or A-int, P, B at C = 13, C, D), the
     # self-check's two legs (A, P, B at C = 13, C, D), the serving demo's
-    # frames, exact and packed (A, P, B at C = 3, B'), and the bench's cases
-    # in process (A, A-int, P, B at C = 3, B', C, D).
+    # frames, exact and packed (A, P, B at C = 3, B'), the bench's cases in
+    # process (A, A-int, P, B at C = 3, B', C, D) and the scaling harness's
+    # ranks at both sizes, summed (A, P, B at C = 13, C, D).
     paths = ("serve", "serve_packed", "train", "trainer", "eval", "pretrain", "parallel",
-             "selfcheck", "serve_demo", "bench")
-    v, q, t, r, e, w, p, s, d, b = (serve_launches, packed_launches, train_launches,
-                                    trainer_launches, eval_launches, pretrain_launches,
-                                    parallel_launches, selfcheck_launches, demo_launches,
-                                    bench_launches)
-    by_path = {k: (v[k], q[k], t[k], r[k], e[k], w[k], p[k], s[k], d[k], b[k]) for k in KERNELS}
+             "selfcheck", "serve_demo", "bench", "scaling")
+    v, q, t, r, e, w, p, s, d, b, c = (serve_launches, packed_launches, train_launches,
+                                       trainer_launches, eval_launches, pretrain_launches,
+                                       parallel_launches, selfcheck_launches, demo_launches,
+                                       bench_launches, scaling_launches)
+    by_path = {k: (v[k], q[k], t[k], r[k], e[k], w[k], p[k], s[k], d[k], b[k], c[k])
+               for k in KERNELS}
     by_path["composite_forward"] = (v["composite_forward"], q["composite_forward"], 0, 0, 0, 0,
-                                    0, 0, d["composite_forward"], b["composite_forward"])
+                                    0, 0, d["composite_forward"], b["composite_forward"], 0)
     by_path["composite_forward_c13"] = (0, 0, t["composite_forward"], r["composite_forward"],
                                         by_c.get(13, 0), w["composite_forward"],
-                                        p["composite_forward"], s["composite_forward"], 0, 0)
-    by_path["composite_forward_c21"] = (0, 0, 0, 0, by_c.get(21, 0), 0, 0, 0, 0, 0)
-    by_path["composite_forward_c51"] = (0, 0, 0, 0, by_c.get(51, 0), 0, 0, 0, 0, 0)
+                                        p["composite_forward"], s["composite_forward"], 0, 0,
+                                        c["composite_forward"])
+    by_path["composite_forward_c21"] = (0, 0, 0, 0, by_c.get(21, 0), 0, 0, 0, 0, 0, 0)
+    by_path["composite_forward_c51"] = (0, 0, 0, 0, by_c.get(51, 0), 0, 0, 0, 0, 0, 0)
     if (set(by_c) - {13, 21, 51} or q["composite_forward"] or t["composite_forward_packed"]
             or w["composite_forward_packed"] or p["composite_forward_packed"]
-            or s["composite_forward_packed"]):
+            or s["composite_forward_packed"] or c["composite_forward_packed"]):
         raise AssertionError(f"unexpected compositor launches: eval {by_c}, packed serving "
                              f"{q['composite_forward']}, train {t['composite_forward_packed']}, "
                              f"pretrain {w['composite_forward_packed']}")
@@ -2715,8 +2885,7 @@ def main() -> int:
     # "at_trainer_shapes" those at the trainer's (A-int's row is the trainer's).
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "launches_by_path")
-    measured = ("max_abs_err", "ms", "event_ms", "ms_parts", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")
+    measured = MEASURED
     for row, trow in zip(train_table, trainer_table):
         row["at_trainer_shapes"] = {k: trow[k] for k in measured if k in trow}
     table[0]["at_train_step"] = {k: a_step_row[k] for k in measured if k in a_step_row}
@@ -2730,10 +2899,13 @@ def main() -> int:
         if entry["name"] in bench_rows:
             row = bench_rows[entry["name"]]
             entry["at_bench_shapes"] = {k: row[k] for k in measured if k in row}
+        if entry["name"] in scaling_rows:
+            entry["at_scaling_shapes"] = scaling_rows[entry["name"]]
         counts = by_path[entry["name"]]
         entry["launches"] = sum(counts)
         entry["launches_by_path"] = dict(zip(paths, counts))
-    extra = ("event_ms", "ms_parts", "at_train_step", "at_trainer_shapes", "at_bench_shapes")
+    extra = ("event_ms", "ms_parts", "at_train_step", "at_trainer_shapes", "at_bench_shapes",
+             "at_scaling_shapes")
     emit({"kernels": [{k: e[k] for k in keys + extra if k in e} for e in table]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

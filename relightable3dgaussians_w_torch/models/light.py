@@ -1,6 +1,6 @@
 """SH environment light with Cook-Torrance split-sum shading: port of the JAX
 package's `models/light.py` (`safe_normalize`, `reflect`, `diffuse_irradiance`,
-`shade`). Stateless: the SH coefficients (`base`, [(deg+1)**2, 3]) come from the
+`specular_light_sh`, `sample_illumination`, `shade`). Stateless: the SH coefficients (`base`, [(deg+1)**2, 3]) come from the
 illumination MLP per image.
 """
 
@@ -12,7 +12,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.texture import bilinear_sample_packed
-from ..utils.sh import gauss_kernel, gamma_correction, sh_basis
+from ..utils.sh import eval_sh, gauss_kernel, gamma_correction, sh_basis
 from .brdf_lut import get_fg_lut_quad
 
 # The specular [N, K] @ [K, 3] product below feeds rendered colors: it must run
@@ -58,6 +58,21 @@ def diffuse_irradiance(base: torch.Tensor, normal: torch.Tensor) -> torch.Tensor
         + 2 * C2 * base[1] * y
         + 2 * C2 * base[2] * z
     )
+
+
+def specular_light_sh(base: torch.Tensor, kr: torch.Tensor, sh_degree: int) -> torch.Tensor:
+    """The environment SH convolved per band with the Gauss-Weierstrass kernel
+    of each roughness. base: [(deg+1)**2, 3]; kr: [N, 1] -> [N, (deg+1)**2, 3]."""
+    return gauss_kernel(kr, sh_degree)[..., None] * base[None]
+
+
+def sample_illumination(base: torch.Tensor, sh_degree: int, positions: torch.Tensor,
+                        view_pos: torch.Tensor) -> torch.Tensor:
+    """Sky radiance along the view rays to positions [N, 3]: the environment SH
+    at each ray's direction, clamped at 0, gamma-corrected -> [N, 3]."""
+    d = safe_normalize(positions - view_pos)
+    illu = torch.clamp_min(eval_sh(sh_degree, base.transpose(0, 1)[None], d), 0.0)
+    return gamma_correction(illu)
 
 
 @functools.lru_cache(maxsize=None)

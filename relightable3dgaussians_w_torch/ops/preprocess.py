@@ -1,7 +1,7 @@
 """Per-Gaussian preprocessing: projection, EWA 2D covariance, conic, tile rects.
 
 Port of the JAX package's `ops/preprocess.py` (`PreprocessOut`, `compute_cov2d`,
-`preprocess`), itself the reference's `preprocessCUDA`. The integer outputs
+`sym6_to_mat`, `preprocess`), itself the reference's `preprocessCUDA`. The integer outputs
 (radius, tiles_touched, tile rects) must equal the JAX package's exactly, so the
 float chains keep its op order: every 3-term projection is written out as
 elementwise products summed left to right (no matmul, whose accumulation order
@@ -91,6 +91,13 @@ def compute_cov2d(p_orig: torch.Tensor, cov3d: torch.Tensor, viewmat: torch.Tens
     return torch.stack([cxx, cxy, cyy], dim=-1)
 
 
+def sym6_to_mat(c6: torch.Tensor) -> torch.Tensor:
+    """(xx, xy, xz, yy, yz, zz) -> [..., 3, 3] symmetric matrix."""
+    xx, xy, xz, yy, yz, zz = (c6[..., i] for i in range(6))
+    rows = [torch.stack(r, dim=-1) for r in ((xx, xy, xz), (xy, yy, yz), (xz, yz, zz))]
+    return torch.stack(rows, dim=-2)
+
+
 def _tile_floor(x: torch.Tensor, tile: int, hi: int) -> torch.Tensor:
     return torch.clamp(torch.floor(x / tile), 0, hi).to(torch.int32)
 
@@ -101,7 +108,8 @@ def preprocess(means3d: torch.Tensor, scales: torch.Tensor, quats: torch.Tensor,
                scale_modifier: float = 1.0,
                active: torch.Tensor | None = None,
                opacities: torch.Tensor | None = None,
-               skip_alpha: float = 1.0 / 255.0) -> PreprocessOut:
+               skip_alpha: float = 1.0 / 255.0,
+               cov3d_precomp: torch.Tensor | None = None) -> PreprocessOut:
     """Vectorized equivalent of preprocessCUDA.
 
     Args:
@@ -115,6 +123,8 @@ def preprocess(means3d: torch.Tensor, scales: torch.Tensor, quats: torch.Tensor,
         opacities: optional [N] or [N, 1] activated opacities; enables the exact
             opacity-aware rect tightening.
         skip_alpha: rect-tightening alpha threshold (1/255 = exact).
+        cov3d_precomp: optional [N, 6] world covariance used in place of the
+            one built from scales and quats (which may then be None).
     """
     tan_fovx = torch.as_tensor(tan_fovx, dtype=torch.float32, device=means3d.device)
     tan_fovy = torch.as_tensor(tan_fovy, dtype=torch.float32, device=means3d.device)
@@ -133,7 +143,8 @@ def preprocess(means3d: torch.Tensor, scales: torch.Tensor, quats: torch.Tensor,
     mean2d = torch.stack(
         [ndc_to_pixel(p_hom_x * inv_w, width), ndc_to_pixel(p_hom_y * inv_w, height)], dim=-1)
 
-    cov3d = covariance_3d(scales, quats, scale_modifier)
+    cov3d = (covariance_3d(scales, quats, scale_modifier) if cov3d_precomp is None
+             else cov3d_precomp)
     cov = compute_cov2d(means3d, cov3d, viewmat, focal_x, focal_y, tan_fovx, tan_fovy)
     cxx, cxy, cyy = cov[:, 0], cov[:, 1], cov[:, 2]
     det = cxx * cyy - cxy * cxy

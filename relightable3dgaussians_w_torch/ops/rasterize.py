@@ -1,7 +1,8 @@
 """Differentiable Gaussian rasterizer: preprocess -> bin -> gather -> composite.
 
 Port of the JAX package's `ops/rasterize.py` (`RasterizerConfig`,
-`CameraMatrices`, `RasterizeAux`, `_assemble_image`, `rasterize`). On the card
+`CameraMatrices`, `RasterizeAux`, `_assemble_image`, `rasterize_aux`,
+`rasterize`). On the card
 the expansion, the compositor (forward and backward) and the gather's transpose
 are the hand-written CUDA kernels of `ops/cuda/`; on the CPU their plain
 PyTorch versions. Gradients flow with autograd: through preprocess to means,
@@ -23,7 +24,7 @@ from typing import NamedTuple
 import torch
 
 from ..device import resolve_device
-from .binning import bin_gaussians
+from .binning import BinningOut, bin_gaussians
 from .composite import pack_rb
 from .cuda import tile_composite as _composite_kernel
 from .preprocess import PreprocessOut, preprocess, row_intervals
@@ -84,6 +85,36 @@ def _assemble_image(tiles_rgb, tiles_tfin, cfg: RasterizerConfig, channels: int)
     return img[: cfg.height, : cfg.width], tfin[: cfg.height, : cfg.width]
 
 
+def _preprocess(means3d, scales, quats, opacities, cam: CameraMatrices, cfg: RasterizerConfig,
+                active, cov3d_precomp, dev: torch.device) -> PreprocessOut:
+    """The preprocess stage of `rasterize` on `dev` (opacities None: the
+    untightened rects)."""
+    to_dev = lambda x: None if x is None else x.to(dev, torch.float32)
+    means3d, scales, quats, cov3d_precomp = map(to_dev, (means3d, scales, quats, cov3d_precomp))
+    cam = CameraMatrices(*[x.to(dev) for x in cam])
+    if active is not None:
+        active = active.to(dev)
+    with torch.profiler.record_function("rasterize.preprocess"):
+        return preprocess(means3d, scales, quats, cam.viewmat, cam.projmat, cam.tan_fovx,
+                          cam.tan_fovy, cfg.width, cfg.height, cfg.tile, cfg.scale_modifier,
+                          active, opacities, skip_alpha=cfg.skip_alpha,
+                          cov3d_precomp=cov3d_precomp)
+
+
+def rasterize_aux(means3d, scales, quats, cam: CameraMatrices, cfg: RasterizerConfig,
+                  cov3d_precomp=None, active=None,
+                  device: str | torch.device = "cuda") -> tuple[PreprocessOut, BinningOut]:
+    """Preprocess and binning only, no compositing: visibility and tile
+    entries, the reference's `markVisible` (rasterize_points.cu:194-213). As
+    in the JAX function the rects are the untightened ones (no opacities) and
+    the binning walks them, whatever `cfg.row_intervals` says: kernels A and P
+    on the card."""
+    dev = resolve_device(device)
+    pre = _preprocess(means3d, scales, quats, None, cam, cfg, active, cov3d_precomp, dev)
+    with torch.profiler.record_function("rasterize.binning"):
+        return pre, bin_gaussians(pre, cfg.grid_x, cfg.grid_y, cfg.max_dup)
+
+
 def rasterize(means3d, scales, quats, opacities, colors, bg,
               cam: CameraMatrices, cfg: RasterizerConfig, active=None,
               device: str | torch.device = "cuda", mean2d_probe=None,
@@ -128,16 +159,7 @@ def rasterize(means3d, scales, quats, opacities, colors, bg,
 
     stage = torch.profiler.record_function
     if pre is None:
-        means3d, scales, quats = (x.to(dev, torch.float32) for x in (means3d, scales, quats))
-        cam = CameraMatrices(*[x.to(dev) for x in cam])
-        if active is not None:
-            active = active.to(dev)
-        with stage("rasterize.preprocess"):
-            pre = preprocess(
-                means3d, scales, quats, cam.viewmat, cam.projmat, cam.tan_fovx, cam.tan_fovy,
-                cfg.width, cfg.height, cfg.tile, cfg.scale_modifier, active, opacities,
-                skip_alpha=cfg.skip_alpha,
-            )
+        pre = _preprocess(means3d, scales, quats, opacities, cam, cfg, active, None, dev)
     else:
         pre = PreprocessOut(*[x.to(dev) for x in pre])
     with stage("rasterize.binning"):

@@ -202,8 +202,8 @@ def add_batch_stats(gstate: G.GaussianState, probe_b, radii_b, ok_b,
 def make_dp_train_step(mlp: MLPNet, cfg: Config, rcfg: RasterizerConfig, mesh: Mesh):
     """step(state, batch, draws, bg) -> (new state, metrics), on this rank's
     slice of the state. `draws` holds the B images' StepDraws (data row d uses
-    draws[d]); metrics are the batch's mean loss, l1 and psnr, its largest
-    overflow and the global count of live Gaussians."""
+    draws[d]); metrics are the batch's mean loss, l1 and psnr, its per-image
+    losses [B], its largest overflow and the global count of live Gaussians."""
     per_image_grads = make_per_image_grads(mlp, cfg, rcfg, mesh)
 
     def step(state: TrainState, batch: CameraBatch, draws, bg):
@@ -223,7 +223,7 @@ def make_dp_train_step(mlp: MLPNet, cfg: Config, rcfg: RasterizerConfig, mesh: M
             gstate = add_batch_stats(state.gauss_state, probe_b, radii_b, ok_b, rcfg)
 
             metrics = SimpleNamespace(
-                loss=losses.mean(), l1=l1s.mean(), psnr=psnrs.mean(), overflow=overflow_b.amax(),
+                loss=losses.mean(), losses=losses, l1=l1s.mean(), psnr=psnrs.mean(), overflow=overflow_b.amax(),
                 num_alive=C.all_reduce_(G.num_alive(gstate), mesh.gauss_group))
         return TrainState(params, gstate, opt, count), metrics
     return step

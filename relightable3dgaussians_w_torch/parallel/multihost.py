@@ -24,11 +24,19 @@ from __future__ import annotations
 
 import datetime
 import os
+import socket
 
 import torch
 import torch.distributed as dist
 
 DIST_TIMEOUT_S = 600.0
+
+
+def free_port() -> int:
+    """A free tcp port on 127.0.0.1, for a rendezvous of ranks on one host."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
 
 
 def maybe_initialize(runtime, device="cuda", backend: str | None = None,

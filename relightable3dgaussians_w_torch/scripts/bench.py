@@ -65,10 +65,11 @@ NOMINAL_BASELINE_PIX_S = 100e6
 MAX_BUDGET = 1 << 23
 
 
-def entry_budget(total: int, headroom: float) -> int:
+def entry_budget(total: int, headroom: float, cap: int | None = MAX_BUDGET) -> int:
     """The static entry budget for a measured demand: + headroom, rounded up
-    to 4096, at least 4096, at most 2^23."""
-    return min(max(((int(total * headroom) + 4095) // 4096) * 4096, 4096), MAX_BUDGET)
+    to 4096, at least 4096, at most `cap` (None: no cap)."""
+    budget = max(((int(total * headroom) + 4095) // 4096) * 4096, 4096)
+    return budget if cap is None else min(budget, cap)
 
 
 def build(n, W, H, seed=0, device="cuda", env=None):

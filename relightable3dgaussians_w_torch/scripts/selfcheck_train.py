@@ -39,7 +39,6 @@ from __future__ import annotations
 import contextlib
 import json
 import os
-import socket
 import sys
 import time
 from pathlib import Path
@@ -58,7 +57,7 @@ from ..models.nets import MLPNet
 from ..ops.rasterize import CameraMatrices, RasterizerConfig
 from ..parallel import data_parallel as DP
 from ..parallel.mesh import make_mesh
-from ..parallel.multihost import maybe_initialize
+from ..parallel.multihost import free_port, maybe_initialize
 from ..renderer import render
 from ..utils.graphics import projection_matrix
 
@@ -208,12 +207,6 @@ def densify_due(it: int, iters: int, ocfg) -> bool:
             and ocfg.densify_from_iter < it < iters // 2)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 @contextlib.contextmanager
 def one_rank_group(device):
     """The process group of the 1 x 1 mesh, opened by
@@ -227,7 +220,7 @@ def one_rank_group(device):
         runtime = SimpleNamespace(coordinator_address=f"{os.environ['MASTER_ADDR']}:"
                                   f"{os.environ.get('MASTER_PORT', '')}")
     else:
-        runtime = SimpleNamespace(coordinator_address=f"127.0.0.1:{_free_port()}",
+        runtime = SimpleNamespace(coordinator_address=f"127.0.0.1:{free_port()}",
                                   num_processes=1, process_id=0)
     maybe_initialize(runtime, device)
     try:

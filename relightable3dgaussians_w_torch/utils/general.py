@@ -1,5 +1,4 @@
-"""General math helpers: port of the JAX package's `utils/general.py` (the parts
-the serving path and the trainer use). Random sampling takes an explicit
+"""General math helpers: port of the JAX package's `utils/general.py`. Random sampling takes an explicit
 `torch.Generator`, or the uniform draws themselves, never torch's global RNG."""
 
 from __future__ import annotations
@@ -39,6 +38,37 @@ def sample_points_on_unit_hemisphere(num_points: int, generator: torch.Generator
     x = torch.sin(phi) * torch.sin(theta)
     z = torch.sin(theta) * torch.cos(phi)
     return torch.stack([x, y, z], dim=-1)
+
+
+def fibonacci_sphere(num_points: int) -> np.ndarray:
+    """Points spread evenly over the unit sphere by the Fibonacci lattice
+    (host numpy, float32 [num_points, 3])."""
+    phi = math.pi * (3.0 - math.sqrt(5.0))
+    N = (num_points - 1) / 2
+    i = np.linspace(-N, N, num_points, dtype=np.float64)
+    lat = np.arcsin(2.0 * i / (2 * N + 1))
+    lon = phi * i
+    x = np.cos(lon) * np.cos(lat)
+    y = np.sin(lon) * np.cos(lat)
+    z = np.sin(lat)
+    return np.stack([x, y, z], axis=-1).astype(np.float32)
+
+
+def rand_hemisphere_dir(rand, N: int, n: torch.Tensor) -> torch.Tensor:
+    """Cosine-weighted random directions on the hemispheres around normals n
+    [L, 3]: [L, N, 3]. `rand` is the uniform [0, 1) draws [L, N, 3], or a
+    `torch.Generator` that draws them (on n's device)."""
+    L = n.shape[0]
+    if isinstance(rand, torch.Generator):
+        rand = torch.rand((L, N, 3), generator=rand, device=rand.device).to(n.device)
+    normals = torch.broadcast_to(n[:, None, :], (L, N, 3))
+    phi = 2 * math.pi * rand[..., 1]
+    d0 = torch.cos(phi) * torch.sqrt(rand[..., 0])
+    d1 = torch.sin(phi) * torch.sqrt(rand[..., 0])
+    d2 = torch.sqrt(torch.clamp(1.0 - d0 * d0 - d1 * d1, 0.0, 1.0))
+    tangent = rand / (torch.linalg.vector_norm(rand, dim=-1, keepdim=True) + 1e-12)
+    bitangent = torch.linalg.cross(tangent, normals, dim=-1)
+    return tangent * d0[..., None] + bitangent * d1[..., None] + normals * d2[..., None]
 
 
 def expon_lr(step, lr_init, lr_final, lr_delay_steps=0, lr_delay_mult=1.0,

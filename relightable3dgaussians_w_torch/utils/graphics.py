@@ -90,6 +90,18 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     return R.reshape(q.shape[:-1] + (3, 3))
 
 
+def quat_to_rotmat_raw(q: torch.Tensor) -> torch.Tensor:
+    """Like quat_to_rotmat without the normalization, as the rasterizer's
+    computeCov3D, which takes the model's already normalized rotations."""
+    R = torch.stack(_rotmat_entries(q), dim=-1)
+    return R.reshape(q.shape[:-1] + (3, 3))
+
+
+def build_scaling_rotation(scales: torch.Tensor, quats: torch.Tensor) -> torch.Tensor:
+    """L = R @ diag(s): the columns are the scaled principal axes."""
+    return quat_to_rotmat(quats) * scales[..., None, :]
+
+
 def covariance_3d(scales: torch.Tensor, quats: torch.Tensor,
                   scale_modifier: float = 1.0) -> torch.Tensor:
     """World covariance R S S^T R^T as (xx, xy, xz, yy, yz, zz), with the raw

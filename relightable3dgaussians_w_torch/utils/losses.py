@@ -1,12 +1,15 @@
 """Training losses: port of the JAX package's `utils/losses.py`.
 
-Masked L1, masked SSIM (11x11 sigma-1.5 Gaussian window), the environment-light
-R+ constraint, the planar min-scale prior, the sky/foreground Gaussian depth
-separation and PSNR. Data-dependent branches stay masked reductions with safe
-denominators, as in the JAX package, so nothing syncs with the host.
+Masked L1 and L2, masked SSIM (11x11 sigma-1.5 Gaussian window), the
+environment-light R+ constraint and hemisphere negativity penalty, the planar
+min-scale prior, the sky/foreground Gaussian and depth-map separations, the
+depth smoothness term, the {0, 1} push, MAE and PSNR. Data-dependent branches
+stay masked reductions with safe denominators, as in the JAX package, so
+nothing syncs with the host.
 
 Random draws come in as tensors: `envl_sh_loss` takes its sample directions
-from the caller (the training step's `StepDraws`).
+from the caller (the training step's `StepDraws`); `envlight_loss` takes its
+normal subset and hemisphere draws, or a `torch.Generator` to draw them.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .general import rand_hemisphere_dir
 from .sh import eval_sh
 
 TINY_NUMBER = 1e-6
@@ -33,6 +37,10 @@ def l1_loss(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor | None = No
     """Mean |pred - gt|; with a {0, 1} mask, the sum over masked pixels over their
     count."""
     return _masked_mean(torch.abs(pred - gt), mask)
+
+
+def l2_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    return torch.mean((pred - gt) ** 2)
 
 
 def gaussian_window_1d(window_size: int = 11, sigma: float = 1.5) -> np.ndarray:
@@ -81,6 +89,82 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
     mask = torch.broadcast_to(mask, ssim_map.shape)
     num = torch.sum(mask == 1)
     return torch.where(num > 0, torch.sum(ssim_map * mask) / torch.clamp_min(num, 1), 1.0)
+
+
+def zero_one_loss(img: torch.Tensor) -> torch.Tensor:
+    """Push values toward {0, 1}: mean of log(v) + log(1 - v), v clipped to
+    [1e-3, 1 - 1e-3]."""
+    eps = 1e-3
+    val = torch.clamp(img, eps, 1 - eps)
+    return torch.mean(torch.log(val) + torch.log(1 - val))
+
+
+def _box_blur5(x: torch.Tensor) -> torch.Tensor:
+    """5x5 mean of [H, W] with zero padding, as 25 shifted float32 products
+    summed in the kernel's row-major order: no convolution, so no TF32 path
+    can reach it (the JAX package pins its convolution to HIGHEST)."""
+    H, W = x.shape
+    xp = F.pad(x, [2, 2, 2, 2])
+    acc = None
+    for i in range(5):
+        for j in range(5):
+            term = xp[i:i + H, j:j + W] * (1.0 / 25.0)
+            acc = term if acc is None else acc + term
+    return acc
+
+
+def smoothing_depth_loss(depth_map: torch.Tensor, mask: torch.Tensor | None = None
+                         ) -> torch.Tensor:
+    """L1 distance between the depth map [H, W] and its 5x5 box blur, which is
+    held constant (no gradient); with a {0, 1} mask, over the masked pixels."""
+    avg = _box_blur5(depth_map).detach()
+    if mask is None:
+        return torch.mean(torch.abs(depth_map - avg))
+    num = torch.sum(mask == 1)
+    return torch.where(num > 0, torch.sum(torch.abs(depth_map * mask - avg * mask))
+                       / torch.clamp_min(num, 1), 0.0)
+
+
+def sky_depth_loss(depth_map: torch.Tensor, sky_mask: torch.Tensor,
+                   gamma: float = 0.02) -> torch.Tensor:
+    """exp(-gamma * (mean sky depth - mean non-sky depth)) over the depth map
+    [H, W]; sky_mask [H, W] is 1 where NOT sky, as the reference's. The non-sky
+    mean is held constant (no gradient); 0 when no pixel is sky."""
+    nosky = 1.0 - sky_mask
+    n_sky = torch.sum(nosky == 1)
+    n_nosky = torch.sum(sky_mask == 1)
+    mean_nosky = (torch.sum(depth_map * sky_mask) / torch.clamp_min(n_nosky, 1)).detach()
+    mean_sky = torch.sum(depth_map * nosky) / torch.clamp_min(n_sky, 1)
+    loss = torch.exp(-gamma * (mean_sky - mean_nosky))
+    return torch.where(n_sky > 0, loss, 0.0)
+
+
+def envlight_loss(draws, envlight_sh: torch.Tensor, sh_degree: int, normals: torch.Tensor,
+                  n_dirs: int = 1000, normals_subset_size: int = 100) -> torch.Tensor:
+    """Negativity penalty on the SH environment light: cosine-weighted
+    directions around a subset of the normals, the light's negative part
+    averaged, squared.
+
+    Args:
+        draws: (idx, rand): the subset's row indices [take] (distinct) and the
+            uniform [0, 1) draws [take, n_dirs, 3] of `rand_hemisphere_dir`;
+            or a `torch.Generator` that draws both (on its device), with
+            take = min(normals_subset_size, N).
+        envlight_sh: [(deg+1)**2, 3] SH coefficients.
+        normals: [N, 3].
+    """
+    if isinstance(draws, torch.Generator):
+        take = min(normals_subset_size, normals.shape[0])
+        idx = torch.randperm(normals.shape[0], generator=draws, device=draws.device)[:take]
+        rand = torch.rand((take, n_dirs, 3), generator=draws, device=draws.device)
+    else:
+        idx, rand = draws
+    dirs = rand_hemisphere_dir(rand.to(normals.device), n_dirs,
+                               normals[idx.to(normals.device)])   # [take, n_dirs, 3]
+    light = eval_sh(sh_degree, envlight_sh.transpose(0, 1), dirs)  # [take, n_dirs, 3]
+    light = torch.clamp_max(light, 0.0)
+    avg = torch.mean(torch.mean(light, dim=1), dim=0)
+    return torch.mean(avg**2)
 
 
 def penalize_outside_range(x: torch.Tensor, lower: float = 0.0, upper: float = 1.0) -> torch.Tensor:
@@ -158,6 +242,13 @@ def img2mse(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor | None = None) 
         return torch.mean((x - y) ** 2)
     mask = torch.broadcast_to(mask, x.shape)
     return torch.sum((x - y) ** 2 * mask) / (torch.sum(mask) + TINY_NUMBER)
+
+
+def img2mae(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+    if mask is None:
+        return torch.mean(torch.abs(x - y))
+    mask = torch.broadcast_to(mask, x.shape)
+    return torch.sum(torch.abs(x - y) * mask) / (torch.sum(mask) + TINY_NUMBER)
 
 
 def mse2psnr(x) -> torch.Tensor:

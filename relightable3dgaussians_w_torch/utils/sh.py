@@ -131,6 +131,14 @@ def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     return torch.sum(sh[..., :n] * basis[..., None, :], dim=-1)
 
 
+def rgb_to_sh(rgb: torch.Tensor) -> torch.Tensor:
+    return (rgb - 0.5) / C0
+
+
+def sh_to_rgb(sh: torch.Tensor) -> torch.Tensor:
+    return sh * C0 + 0.5
+
+
 def band_index_per_coeff(deg: int) -> np.ndarray:
     """Static map: flat SH coefficient index -> band l."""
     return np.floor(np.sqrt(np.arange(num_sh_coeffs(deg)))).astype(np.int32)
