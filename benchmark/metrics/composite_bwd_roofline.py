@@ -1,0 +1,19 @@
+"""Kernel C (`csrc/tile_composite.cu` composite_bwd_kernel): the bound of each
+captured launch (`roofline.composite_bwd_bound_s` on its own pairs) over its
+device time, summed over the
+captured launches (the traced slice's last steps). Raises unless the profile
+caught every launch the port's counter counted."""
+
+from benchmark import roofline
+
+
+def read(ctx):
+    times = ctx.checked_kernel_times_ms("composite_backward")
+    caps = ctx.captures["composite_backward"]
+    if not caps:
+        return None
+    pairs = ctx.composite_pairs("composite_backward")
+    bound = sum(roofline.composite_bwd_bound_s(p, int(feat.shape[0]), feat.shape[1],
+                                               ts.shape[0], feat.shape[1] - 6)
+                for p, (feat, ts, te) in zip(pairs, caps))
+    return 100.0 * bound / (sum(times[-len(caps):]) / 1e3)

@@ -1,0 +1,6 @@
+"""Share of the traced training steps' wall time in which no operation ran on
+the card."""
+
+
+def read(ctx):
+    return 100.0 * (1.0 - ctx.busy_s() / ctx.window_s)
