@@ -5,6 +5,9 @@
 flax's order (Dense_0 ... Dense_5), so `convert.mlp_state_dict_from_flax` maps
 them by index.
 
+`MLPNet.forward` runs inside the `torch.profiler` range "nets.mlp", so a
+profile of a served frame or a training step shows the MLP's time.
+
 `EmbeddingNet` is the convolutional autoencoder that only initializes the
 per-image embeddings (`pretrain.py`). It takes and returns NHWC, as the flax
 module does, and runs NCHW inside; `convert.embedding_net_from_flax` carries
@@ -56,15 +59,16 @@ class MLPNet(nn.Module):
         for the dropout after the first layer; kept units are scaled by 1/0.8
         (inverted dropout, as flax does)."""
         dense = self.dense
-        x = dense[0](e)
-        if keep is not None:
-            x = torch.where(keep, x / KEEP_PROB, 0.0)
-        x = F.relu(x)
-        x = F.relu(dense[1](x))
-        base = F.relu(dense[2](x))
-        sh_sky = dense[3](base).reshape(e.shape[:-1] + (self.sh_dim_sky, 3))
-        y = F.relu(dense[4](base))
-        sh_envl = dense[5](y).reshape(e.shape[:-1] + (self.sh_dim_envl, 3))
+        with torch.profiler.record_function("nets.mlp"):
+            x = dense[0](e)
+            if keep is not None:
+                x = torch.where(keep, x / KEEP_PROB, 0.0)
+            x = F.relu(x)
+            x = F.relu(dense[1](x))
+            base = F.relu(dense[2](x))
+            sh_sky = dense[3](base).reshape(e.shape[:-1] + (self.sh_dim_sky, 3))
+            y = F.relu(dense[4](base))
+            sh_envl = dense[5](y).reshape(e.shape[:-1] + (self.sh_dim_envl, 3))
         return sh_envl, sh_sky
 
 

@@ -21,6 +21,11 @@ Port of the JAX package's `ops/binning.py` `bin_gaussians` /
   (`permute_entries`, a CUDA kernel on the card, which also gathers the sorted
   ids), so the backward sorts nothing.
 
+The depth argsort, the expansion and the key sort run inside the
+`torch.profiler` range "binning.sort" (nested in the rasterizer's
+"rasterize.binning"): the expansion lies between the two sorts, as the rank
+it writes into the keys comes from the first.
+
 The JAX package's chunk-aligned layout and its tile histograms exist for the
 TPU's DMA and have no counterpart here.
 
@@ -131,16 +136,17 @@ def bin_gaussians(pre: PreprocessOut, grid_x: int, grid_y: int, max_dup: int,
     offsets = csum - counts
     total = csum[-1] if n > 0 else torch.zeros((), dtype=torch.int64, device=dev)
 
-    order = torch.argsort(pre.depth, stable=True)
-    rank = torch.empty_like(order)
-    rank[order] = torch.arange(n, device=dev)
-    rect_w = torch.clamp_min(pre.rect_max[:, 0] - pre.rect_min[:, 0], 1).to(torch.int32)
-    packed = intervals[1].to(torch.int32).contiguous() if use_intervals else None
+    with torch.profiler.record_function("binning.sort"):
+        order = torch.argsort(pre.depth, stable=True)
+        rank = torch.empty_like(order)
+        rank[order] = torch.arange(n, device=dev)
+        rect_w = torch.clamp_min(pre.rect_max[:, 0] - pre.rect_min[:, 0], 1).to(torch.int32)
+        packed = intervals[1].to(torch.int32).contiguous() if use_intervals else None
 
-    keys, gid = _expand_kernel.expand_entries(
-        counts, offsets, pre.rect_min.to(torch.int32).contiguous(), rect_w.contiguous(),
-        rank, grid_x, max_dup, packed=packed)
-    sorted_keys, perm = torch.sort(keys, stable=True)
+        keys, gid = _expand_kernel.expand_entries(
+            counts, offsets, pre.rect_min.to(torch.int32).contiguous(), rect_w.contiguous(),
+            rank, grid_x, max_dup, packed=packed)
+        sorted_keys, perm = torch.sort(keys, stable=True)
     bounds = torch.arange(num_tiles + 1, dtype=torch.int64, device=dev) << 32
     edges = torch.searchsorted(sorted_keys, bounds)
     seg_bounds = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), csum])

@@ -14,7 +14,8 @@ forward-only kernel B' composites them; a render that needs gradients raises.
 The TPU layout knobs of the JAX config (Pallas chunking, segment alignment,
 tiles per grid step) have no meaning here and are dropped. Each stage runs inside a `torch.profiler` range
 ("rasterize.preprocess", ".binning", ".gather", ".composite"), so a profile
-of any caller splits its time by stage.
+of any caller splits its time by stage; inside ".binning", "binning.sort"
+holds the depth argsort, the expansion and the key sort (`ops/binning.py`).
 """
 
 from __future__ import annotations

@@ -11,6 +11,10 @@ Channel layout (with debug=True):
     10:13 normal*0.5+0.5  13:16 sky_color  16 roughness    17   metalness
     18:21 albedo
 debug=False drops channels 13:21 (13 channels).
+
+The per-Gaussian shading (`compute_colors`: the SH basis, Cook-Torrance, the
+sky colour and the concatenation of the channels) runs inside the
+`torch.profiler` range "renderer.shading", in serving and in training alike.
 """
 
 from __future__ import annotations
@@ -67,41 +71,42 @@ def compute_colors(params: G.GaussianParams, state: G.GaussianState,
     depth channel left zero for `render_inputs` to fill. Returns
     (colors [N, 3 or C], normals [N, 3]).
     """
-    xyz = G.get_xyz(params, state)
-    albedo = G.get_albedo(params)
-    kr = G.get_roughness(params)
-    km = G.get_metalness(params)
-    is_sky = state.is_sky[:, None]
+    with torch.profiler.record_function("renderer.shading"):
+        xyz = G.get_xyz(params, state)
+        albedo = G.get_albedo(params)
+        kr = G.get_roughness(params)
+        km = G.get_metalness(params)
+        is_sky = state.is_sky[:, None]
 
-    dir_pp = xyz - campos[None, :]
-    dir_pp_n = L.safe_normalize(dir_pp)
-    normal = G.get_normal(params, dir_pp_n)
+        dir_pp = xyz - campos[None, :]
+        dir_pp_n = L.safe_normalize(dir_pp)
+        normal = G.get_normal(params, dir_pp_n)
 
-    shaded = L.shade(envlight_base, envlight_sh_degree, xyz, normal, albedo, campos,
-                     kr, km, specular=specular)
+        shaded = L.shade(envlight_base, envlight_sh_degree, xyz, normal, albedo, campos,
+                         kr, km, specular=specular)
 
-    if fix_sky:
-        sky_rgb = torch.ones_like(xyz)
-    else:
-        sky_sh2rgb = eval_sh(sky_sh_degree, sky_sh.transpose(-1, -2), dir_pp_n)
-        sky_rgb = torch.clamp_min(sky_sh2rgb + 0.5, 0.0)
+        if fix_sky:
+            sky_rgb = torch.ones_like(xyz)
+        else:
+            sky_sh2rgb = eval_sh(sky_sh_degree, sky_sh.transpose(-1, -2), dir_pp_n)
+            sky_rgb = torch.clamp_min(sky_sh2rgb + 0.5, 0.0)
 
-    rgb = torch.where(is_sky, sky_rgb, shaded.rgb)
-    if rgb_only:
-        return rgb, normal
-    diffuse = torch.where(is_sky, 0.0, shaded.diffuse)
-    spec = torch.where(is_sky, 0.0, shaded.specular)
-    depth_feat = torch.zeros_like(xyz[:, :1])   # filled by render_inputs
-    normal_feat = 0.5 * normal + 0.5
-    channels = [rgb, diffuse, spec, depth_feat, normal_feat]
-    if debug:
-        channels += [
-            torch.where(is_sky, sky_rgb, 0.0),
-            torch.where(is_sky, 0.0, kr),
-            torch.where(is_sky, 0.0, km),
-            torch.where(is_sky, torch.ones_like(albedo), albedo),
-        ]
-    return torch.cat(channels, dim=-1), normal
+        rgb = torch.where(is_sky, sky_rgb, shaded.rgb)
+        if rgb_only:
+            return rgb, normal
+        diffuse = torch.where(is_sky, 0.0, shaded.diffuse)
+        spec = torch.where(is_sky, 0.0, shaded.specular)
+        depth_feat = torch.zeros_like(xyz[:, :1])   # filled by render_inputs
+        normal_feat = 0.5 * normal + 0.5
+        channels = [rgb, diffuse, spec, depth_feat, normal_feat]
+        if debug:
+            channels += [
+                torch.where(is_sky, sky_rgb, 0.0),
+                torch.where(is_sky, 0.0, kr),
+                torch.where(is_sky, 0.0, km),
+                torch.where(is_sky, torch.ones_like(albedo), albedo),
+            ]
+        return torch.cat(channels, dim=-1), normal
 
 
 def render_rgb(params: G.GaussianParams, state: G.GaussianState,

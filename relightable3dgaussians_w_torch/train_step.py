@@ -24,7 +24,12 @@ Between steps the trainer calls the density-control steps: `densify_step`
 Each part of the step runs inside a `torch.profiler` range ("train_step.
 to_device", ".leaf_inputs", ".render", ".losses", ".backward", ".adam"; the
 rasterizer and the two backward kernels add their own), so a profile of the
-step splits its time by stage.
+step splits its time by stage. Inside ".leaf_inputs" the MLP and the shading
+have theirs ("nets.mlp", "renderer.shading"). The backward runs on autograd's
+thread: the device span of ".backward", opened on the calling thread, holds
+almost none of its kernels (the two backward Functions' ranges hold theirs), so
+the backward's device time is what runs between the ".losses" and ".adam"
+ranges' device spans.
 
 The JAX step's three random draws (envlight noise, dropout keep-mask, R+ sample
 directions) come in as one `StepDraws`; `make_draws` makes them from an
@@ -321,8 +326,9 @@ def loss_and_grads(state: TrainState, cam: CameraMatrices, gt_image, sky_mask, o
                    rcfg: RasterizerConfig, device: str | torch.device = "cuda",
                    raster_fn=None, pool_group=None):
     """(loss, aux, parameter-gradient tree, probe gradient [N, 2]) of one step,
-    with every input already on `device`; raster_fn and pool_group as in
-    `core_loss` (with a pool group the loss and gradients are this rank's)."""
+    detached from autograd, with every input already on `device`; raster_fn
+    and pool_group as in `core_loss` (with a pool group the loss and gradients
+    are this rank's)."""
     params = tree_map(lambda p: p.detach().requires_grad_(True), state.params)
     n = state.gauss_state.alive.shape[0]
     probe = torch.zeros((n, 2), dtype=torch.float32, device=device, requires_grad=True)
@@ -332,9 +338,13 @@ def loss_and_grads(state: TrainState, cam: CameraMatrices, gt_image, sky_mask, o
     leaves = tree_leaves(params) + [probe]
     with torch.profiler.record_function("train_step.backward"):
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        # Drop the step's autograd graph here (the loss and the loss stack's
+        # l1 and psnr hold it): its release takes host time, which the step's
+        # return would otherwise spend outside every range.
+        loss, aux = loss.detach(), {k: v.detach() for k, v in aux.items()}
     grads = iter([torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves)])
     param_grads = tree_map(lambda _: next(grads), params)
-    return loss.detach(), aux, param_grads, next(grads)
+    return loss, aux, param_grads, next(grads)
 
 
 def train_step(state: TrainState, cam: CameraMatrices, gt_image, sky_mask, occluders_mask,

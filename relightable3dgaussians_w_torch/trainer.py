@@ -33,6 +33,11 @@ Random draws come from `torch.Generator`s seeded with `runtime.seed` (one on
 the host for the sky seeding and the initial MLP and embeddings, one on the
 device for the step draws and the split noise); the view order is the JAX
 trainer's `np.random.RandomState(seed)` sequence.
+
+Each iteration of the loop runs inside the `torch.profiler` range
+"trainer.iteration", and its read of the previous step's overflow count (which
+waits for that step on the device) and any healing inside
+"trainer.overflow_read".
 """
 
 from __future__ import annotations
@@ -66,7 +71,7 @@ from .parallel.mesh import make_mesh
 from .renderer import render
 from .utils import losses as LO
 from .utils.general import grad_thr_exp_scheduling, sample_points_on_unit_hemisphere
-from .utils.logging import ProfilerWindow, StepTimer, TrainLogger
+from .utils.logging import ProfilerWindow, TrainLogger
 from .viewer import ServeState, ViewerServer, handle_viewer_request
 
 ROW_INTERVALS_MIN_CUT = 0.15   # auto-enable row intervals at this entry cut
@@ -326,7 +331,6 @@ class Relightable3DGWTrainer:
         rng = np.random.RandomState(cfg.runtime.seed)
         t0 = time.time()
         warm = (0, t0)  # (iter, wall) after the first logged step
-        timer = StepTimer()
         viewer = None
         if cfg.runtime.viewer_port > 0 and self.multiprocess:
             print("viewer: disabled under multi-process training (a render request on one "
@@ -345,107 +349,109 @@ class Relightable3DGWTrainer:
             while it < iterations:
                 prev_it, it = it, it + B
                 self.profiler.step(it)
-                timer.tic()
+                t_iter = time.perf_counter()
+                with torch.profiler.record_function("trainer.iteration"):
+                    # Binning-overflow healing, one step delayed: the previous
+                    # step's overflow count is read before this step starts, so
+                    # at most the step that overflowed (whose update was
+                    # rejected) is lost; this one runs with the grown budget.
+                    # The read waits for the previous step on the device.
+                    if prev_overflow is not None:
+                        with torch.profiler.record_function("trainer.overflow_read"):
+                            n_over = int(prev_overflow)
+                            if n_over > 0:
+                                self._heal_binning_overflow(prev_it, n_over)
+                        prev_overflow = None
 
-                # Binning-overflow healing, one step delayed: the previous
-                # step's overflow count is read before this step starts, so at
-                # most the step that overflowed (whose update was rejected) is
-                # lost; this one runs with the grown budget.
-                if prev_overflow is not None:
-                    n_over = int(prev_overflow)
-                    if n_over > 0:
-                        self._heal_binning_overflow(prev_it, n_over)
-                    prev_overflow = None
+                    views = []
+                    for _ in range(B):
+                        if not view_stack:
+                            view_stack = list(range(len(self.train_views)))
+                        views.append(self.train_views[view_stack.pop(rng.randint(len(view_stack)))])
+                    if self.mesh is None:
+                        view = views[0]
+                        draws = TS.make_draws(self.gen, self.mlp, cfg)
+                        self.state, aux = TS.train_step(
+                            self.state, view["mats"], view["image_t"], view["sky_t"], view["occ_t"],
+                            view["cam"].uid, draws, self.bg_color, self.mlp, cfg, self.rcfg,
+                            device=self.device)
+                    else:
+                        self.state, aux = self._dp_train_step(views)
+                    prev_overflow = aux.overflow
 
-                views = []
-                for _ in range(B):
-                    if not view_stack:
-                        view_stack = list(range(len(self.train_views)))
-                    views.append(self.train_views[view_stack.pop(rng.randint(len(view_stack)))])
-                if self.mesh is None:
-                    view = views[0]
-                    draws = TS.make_draws(self.gen, self.mlp, cfg)
-                    self.state, aux = TS.train_step(
-                        self.state, view["mats"], view["image_t"], view["sky_t"], view["occ_t"],
-                        view["cam"].uid, draws, self.bg_color, self.mlp, cfg, self.rcfg,
-                        device=self.device)
-                else:
-                    self.state, aux = self._dp_train_step(views)
-                prev_overflow = aux.overflow
+                    if viewer is not None:
+                        try:
+                            handle_viewer_request(viewer, _ViewerHost(self))
+                        except Exception as e:  # a viewer hiccup must never stop training
+                            print(f"viewer: request failed ({e!r}); dropping connection")
+                            viewer.close_conn()
 
-                if viewer is not None:
-                    try:
-                        handle_viewer_request(viewer, _ViewerHost(self))
-                    except Exception as e:  # a viewer hiccup must never stop training
-                        print(f"viewer: request failed ({e!r}); dropping connection")
-                        viewer.close_conn()
+                    if self._crossed(log_every, prev_it, it) or prev_it == 0:
+                        loss = float(aux.loss)  # the pull waits for the step
+                        iter_ms = (time.perf_counter() - t_iter) * 1e3
+                        if warm[0] == 0:
+                            warm = (it, time.time())
+                        steady = ((it - warm[0]) / max(time.time() - warm[1], 1e-9)
+                                  if it > warm[0] else 1e3 / max(iter_ms, 1e-9))
+                        rec = dict(loss=loss, l1=float(aux.l1), psnr=float(aux.psnr),
+                                   alive=int(aux.num_alive), overflow=int(aux.overflow),
+                                   iter_time=iter_ms, iters_per_s=steady)
+                        self.logger.scalars(it, rec)
+                        print(f"[{it}] loss={loss:.5f} psnr={rec['psnr']:.2f} "
+                              f"alive={rec['alive']} {rec['iters_per_s']:.2f} it/s")
 
-                if self._crossed(log_every, prev_it, it) or prev_it == 0:
-                    loss = float(aux.loss)  # the pull waits for the step
-                    iter_ms = timer.toc()
-                    if warm[0] == 0:
-                        warm = (it, time.time())
-                    steady = ((it - warm[0]) / max(time.time() - warm[1], 1e-9)
-                              if it > warm[0] else 1e3 / max(iter_ms, 1e-9))
-                    rec = dict(loss=loss, l1=float(aux.l1), psnr=float(aux.psnr),
-                               alive=int(aux.num_alive), overflow=int(aux.overflow),
-                               iter_time=iter_ms, iters_per_s=steady)
-                    self.logger.scalars(it, rec)
-                    print(f"[{it}] loss={loss:.5f} psnr={rec['psnr']:.2f} "
-                          f"alive={rec['alive']} {rec['iters_per_s']:.2f} it/s")
+                    if (self.logger.tb is not None and not self.multiprocess
+                            and self._crossed(log_every * 10, prev_it, it)):
+                        p, alive = self.state.params["gaussians"], self.state.gauss_state.alive
+                        for name in ("opacity", "roughness", "metalness"):
+                            vals = torch.sigmoid(getattr(p, name)[alive, 0])
+                            self.logger.histogram(it, name, vals.cpu().numpy())
 
-                if (self.logger.tb is not None and not self.multiprocess
-                        and self._crossed(log_every * 10, prev_it, it)):
-                    p, alive = self.state.params["gaussians"], self.state.gauss_state.alive
-                    for name in ("opacity", "roughness", "metalness"):
-                        vals = torch.sigmoid(getattr(p, name)[alive, 0])
-                        self.logger.histogram(it, name, vals.cpu().numpy())
-
-                # Densification schedule.
-                if it < o.densify_until_iter:
-                    if (it > o.densify_from_iter
-                            and self._crossed(o.densification_interval, prev_it, it)):
-                        t_ev = time.perf_counter()
-                        sized = it > o.opacity_reset_interval
-                        # A sharded pool densifies whole: gathered over the
-                        # gauss group, the single-device densify alike on
-                        # every rank (same generator), then this rank's slice.
-                        state = self._full_pool()
-                        state, report = TS.densify_step(
-                            state, grad_threshold, self.cameras_extent, cfg,
-                            max_screen_size=20 if sized else None, generator=self.gen)
-                        rep = {k: int(v) for k, v in report._asdict().items()}
-                        self._event(it, "densify", t_ev, variant="sized" if sized else "plain",
-                                    grad_threshold=grad_threshold, **rep)
-                        grad_threshold = grad_thr_exp_scheduling(
-                            it, o.densify_until_iter, o.densify_grad_threshold)
-                        if rep["overflow"] > 0:
-                            # Grow the pool (params, pool state, Adam moments) so
-                            # the next round has room; the missed selections come
-                            # back next round from fresh stats.
-                            cap = state.gauss_state.alive.shape[0]
-                            new_cap = -(-int(cap * 1.5) // self.gauss_ax) * self.gauss_ax
-                            print(f"[{it}] pool overflow: {rep['overflow']} selected "
-                                  f"Gaussians not allocated; growing pool {cap} -> {new_cap}")
+                    # Densification schedule.
+                    if it < o.densify_until_iter:
+                        if (it > o.densify_from_iter
+                                and self._crossed(o.densification_interval, prev_it, it)):
                             t_ev = time.perf_counter()
-                            state = TS.grow_train_state(state, new_cap)
-                            self._event(it, "grow_pool", t_ev, capacity=new_cap)
-                        self._set_full_state(state)
-                    if (self._crossed(o.opacity_reset_interval, prev_it, it)
-                            or (prev_it < o.densify_from_iter <= it)):
+                            sized = it > o.opacity_reset_interval
+                            # A sharded pool densifies whole: gathered over the
+                            # gauss group, the single-device densify alike on
+                            # every rank (same generator), then this rank's slice.
+                            state = self._full_pool()
+                            state, report = TS.densify_step(
+                                state, grad_threshold, self.cameras_extent, cfg,
+                                max_screen_size=20 if sized else None, generator=self.gen)
+                            rep = {k: int(v) for k, v in report._asdict().items()}
+                            self._event(it, "densify", t_ev, variant="sized" if sized else "plain",
+                                        grad_threshold=grad_threshold, **rep)
+                            grad_threshold = grad_thr_exp_scheduling(
+                                it, o.densify_until_iter, o.densify_grad_threshold)
+                            if rep["overflow"] > 0:
+                                # Grow the pool (params, pool state, Adam moments) so
+                                # the next round has room; the missed selections come
+                                # back next round from fresh stats.
+                                cap = state.gauss_state.alive.shape[0]
+                                new_cap = -(-int(cap * 1.5) // self.gauss_ax) * self.gauss_ax
+                                print(f"[{it}] pool overflow: {rep['overflow']} selected "
+                                      f"Gaussians not allocated; growing pool {cap} -> {new_cap}")
+                                t_ev = time.perf_counter()
+                                state = TS.grow_train_state(state, new_cap)
+                                self._event(it, "grow_pool", t_ev, capacity=new_cap)
+                            self._set_full_state(state)
+                        if (self._crossed(o.opacity_reset_interval, prev_it, it)
+                                or (prev_it < o.densify_from_iter <= it)):
+                            t_ev = time.perf_counter()
+                            self.state = TS.reset_opacity_step(self.state)
+                            self._event(it, "opacity_reset", t_ev)
+
+                    if any(prev_it < s <= it for s in test_iterations) or it >= iterations:
                         t_ev = time.perf_counter()
-                        self.state = TS.reset_opacity_step(self.state)
-                        self._event(it, "opacity_reset", t_ev)
+                        self.evaluate_report(it)
+                        self._event(it, "evaluate", t_ev)
 
-                if any(prev_it < s <= it for s in test_iterations) or it >= iterations:
-                    t_ev = time.perf_counter()
-                    self.evaluate_report(it)
-                    self._event(it, "evaluate", t_ev)
-
-                if any(prev_it < s <= it for s in save_iterations) or it >= iterations:
-                    t_ev = time.perf_counter()
-                    self.save(it)
-                    self._event(it, "save", t_ev)
+                    if any(prev_it < s <= it for s in save_iterations) or it >= iterations:
+                        t_ev = time.perf_counter()
+                        self.save(it)
+                        self._event(it, "save", t_ev)
         finally:
             if viewer is not None:
                 viewer.close()

@@ -11,7 +11,6 @@ from __future__ import annotations
 
 import json
 import os
-import time
 
 import numpy as np
 import torch
@@ -86,20 +85,3 @@ class ProfilerWindow:
         if self._prof is not None:
             self._stop()
 
-
-class StepTimer:
-    """EMA per-iteration wall time (the reference's iter_time scalar)."""
-
-    def __init__(self, beta: float = 0.9):
-        self.beta = beta
-        self.ema_ms = 0.0
-        self._t = None
-
-    def tic(self):
-        self._t = time.perf_counter()
-
-    def toc(self) -> float:
-        dt = (time.perf_counter() - self._t) * 1e3
-        self.ema_ms = dt if self.ema_ms == 0.0 else (
-            self.beta * self.ema_ms + (1 - self.beta) * dt)
-        return dt

@@ -16,6 +16,13 @@ Port of the JAX package's `viewer.py`, itself the reference's
 `try_connect` / `receive` / `send_image` are non-blocking so a host loop can poll.
 Frames render on the server's device (CUDA by default) and are quantized to uint8
 there, so 3 bytes per pixel cross to the host.
+
+A served frame runs inside `torch.profiler` ranges: "viewer.request" (the
+request's parse and the camera tensors on the device), "viewer.to_host" (the
+wait for the frame and its copy to the host) and "viewer.send" (the payload and
+the socket); the paused loop's sleep between requests is "viewer.wait". The MLP
+("nets.mlp"), the shading ("renderer.shading") and the rasterizer's ranges fall
+between the first two.
 """
 
 from __future__ import annotations
@@ -148,24 +155,26 @@ class ViewerServer:
     def send_image(self, image: np.ndarray | None):
         """image: [H, W, 3] float in [0,1], or uint8 passed through as-is. None
         sends the SIBR verify string alone (a heartbeat reply); json sends nothing."""
-        if self.conn is None or (image is None and self.protocol == "json"):
-            return
-        if self.protocol == "sibr":
-            v = self.verify.encode("ascii")
-            payload = b"" if image is None else _to_u8(image).tobytes()
-            payload += struct.pack("<I", len(v)) + v
-        else:
-            data = _to_u8(image).tobytes()
-            payload = struct.pack("<I", len(data)) + data
-        try:
-            # The connection is non-blocking between requests, and sendall on a
-            # non-blocking socket gives up once the send buffer is full, which
-            # one frame of a few MB fills: block (with a timeout) while sending.
-            self.conn.settimeout(SEND_TIMEOUT_S)
-            self.conn.sendall(payload)
-            self.conn.settimeout(0)
-        except OSError:
-            self.close_conn()
+        with torch.profiler.record_function("viewer.send"):
+            if self.conn is None or (image is None and self.protocol == "json"):
+                return
+            if self.protocol == "sibr":
+                v = self.verify.encode("ascii")
+                payload = b"" if image is None else _to_u8(image).tobytes()
+                payload += struct.pack("<I", len(v)) + v
+            else:
+                data = _to_u8(image).tobytes()
+                payload = struct.pack("<I", len(data)) + data
+            try:
+                # The connection is non-blocking between requests, and sendall on
+                # a non-blocking socket gives up once the send buffer is full,
+                # which one frame of a few MB fills: block (with a timeout) while
+                # sending.
+                self.conn.settimeout(SEND_TIMEOUT_S)
+                self.conn.sendall(payload)
+                self.conn.settimeout(0)
+            except OSError:
+                self.close_conn()
 
     def close_conn(self):
         if self.conn is not None:
@@ -195,7 +204,8 @@ def handle_viewer_request(server: ViewerServer, host) -> bool:
         req = server.receive()
         if req is None:
             if paused:
-                time.sleep(0.005)        # client paused training: keep serving
+                with torch.profiler.record_function("viewer.wait"):
+                    time.sleep(0.005)    # client paused training: keep serving
                 continue
             break
         paused = not req.get("train", True)
@@ -222,27 +232,28 @@ def serve_rcfg(host, W: int, H: int, scale_modifier: float = 1.0) -> RasterizerC
 
 def _serve_frame(server: ViewerServer, host, req: dict):
     dev = server.device
-    W = int(req.get("width", host.W))
-    H = int(req.get("height", host.H))
-    viewmat = np.asarray(req["viewmat"], np.float32)
-    fovx = float(req["fovx"])
-    fovy = float(req["fovy"])
-    if "projmat" in req:
-        proj_full = np.asarray(req["projmat"], np.float32)
-    else:
-        proj_full = projection_matrix(
-            float(req.get("znear", 0.01)), float(req.get("zfar", 100.0)),
-            fovx, fovy) @ viewmat
-    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
-    cam = CameraMatrices(
-        viewmat=f32(viewmat),
-        projmat=f32(proj_full),
-        campos=f32(np.linalg.inv(viewmat)[:3, 3]),
-        tan_fovx=f32(np.tan(fovx / 2)),
-        tan_fovy=f32(np.tan(fovy / 2)),
-    )
-    rcfg = serve_rcfg(host, W, H, float(req.get("scaling_modifier", 1.0)))
-    idx = int(req.get("embedding_index", 0))
+    with torch.profiler.record_function("viewer.request"):
+        W = int(req.get("width", host.W))
+        H = int(req.get("height", host.H))
+        viewmat = np.asarray(req["viewmat"], np.float32)
+        fovx = float(req["fovx"])
+        fovy = float(req["fovy"])
+        if "projmat" in req:
+            proj_full = np.asarray(req["projmat"], np.float32)
+        else:
+            proj_full = projection_matrix(
+                float(req.get("znear", 0.01)), float(req.get("zfar", 100.0)),
+                fovx, fovy) @ viewmat
+        f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        cam = CameraMatrices(
+            viewmat=f32(viewmat),
+            projmat=f32(proj_full),
+            campos=f32(np.linalg.inv(viewmat)[:3, 3]),
+            tan_fovx=f32(np.tan(fovx / 2)),
+            tan_fovy=f32(np.tan(fovy / 2)),
+        )
+        rcfg = serve_rcfg(host, W, H, float(req.get("scaling_modifier", 1.0)))
+        idx = int(req.get("embedding_index", 0))
     model = host.cfg.model
     with torch.inference_mode():
         host.mlp.eval()
@@ -250,7 +261,8 @@ def _serve_frame(server: ViewerServer, host, req: dict):
         rgb_u8, aux = _frame_u8(host.state, envl[0], sky_sh, cam, host.bg_color, rcfg,
                                 model.envlight_sh_degree, model.sky_sh_degree,
                                 model.specular, bool(req.get("fix_sky", model.fix_sky)), dev)
-        frame = rgb_u8.cpu().numpy()
+        with torch.profiler.record_function("viewer.to_host"):
+            frame = rgb_u8.cpu().numpy()
     server.last_aux = aux
     server.send_image(frame)
 
