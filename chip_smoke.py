@@ -202,6 +202,16 @@ Gaussians, random MLP weights from a seed), then:
             With one card this is n = 1 alone, a per-card baseline of the DP
             step and not a scaling number; the record says so.
 
+19. shading: (after the scaling kernels, before the training phases) kernels S
+            and S' (`csrc/shade.cu`: the per-Gaussian shading and its
+            gradient) against the plain chain on the card at the cells'
+            shapes (3.03M rows RGB, 8.16M rows 13 channels): colours within
+            2e-4, every leaf's gradient within 1e-3 of its norm (autograd's
+            over the plain chain), two backward runs bitwise, times and byte
+            bounds; S' also with a training pool's cotangents (zero past 1.01M
+            live rows). `python3 chip_smoke.py --shading` runs this phase
+            alone.
+
 The serve phase also runs `rasterize_aux` (the untightened rects, as in JAX)
 on the first frame's inputs on the card and on the CPU: the card's binning
 bitwise against the plain binning of its own preprocess, its preprocess
@@ -474,6 +484,113 @@ def kernels_phase(host, dev):
              replaces="relightable3dgaussians_w_tpu/ops/pallas/tile_composite.py:193", **b_row),
     ]
     return table, img_k, record
+
+
+# The cells' shading shapes: serve-3m-1600's 3.03M rows in RGB, train-1m-800's
+# 8.16M-row pool in 13 channels with the view depth.
+SHADE_SHAPES = ((3_030_000, 3), (8_160_000, 13))
+SHADE_OPS = 405         # float ops a row of the forward (benchmark/roofline.py SHADE_OPS)
+
+
+def shade_inputs(n, channels, dev, seed=0):
+    """Random raw pool rows in front of the camera (1% sky), a bright envlight
+    (SH 4) and a sky SH (SH 1), the cells' widths."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    rows = (r(n, 3) * 2 + torch.tensor([0.0, 0.0, 4.5], device=dev), r(n, 4), r(n, 3) * 0.5 - 3,
+            r(n, 3), r(n, 1) * 2, r(n, 1) * 2, torch.rand(n, generator=g, device=dev) < 0.01)
+    base = r(25, 3) * 0.5
+    base[0] += 1.5
+    view = torch.tensor([0.0, 0.1, 1.0, -0.5], device=dev) if channels > 3 else None
+    return rows, base, r(1, 4, 3) * 0.3, torch.tensor([0.1, -0.2, 0.0], device=dev), view
+
+
+def shading_phase(dev):
+    """Kernels S and S' (`csrc/shade.cu`) against the plain chain on the card at
+    the cells' shapes: colours and every leaf's gradient (the plain backward is
+    autograd's over the plain chain), two backward runs bitwise, device times
+    (`device_ms`) and bounds (bytes: 61 read a row, 4 a channel written; the
+    backward reads the rows and the channels' cotangents and writes 48 bytes
+    of gradients; operations: SHADE_OPS a row, three times that backward)."""
+    from relightable3dgaussians_w_torch.models.light import _fg_lut_quad_on
+    from relightable3dgaussians_w_torch.ops import shading
+    from relightable3dgaussians_w_torch.ops.cuda import shade as shade_kernel
+
+    lut = _fg_lut_quad_on(dev)
+    out, rows_s, rows_b = {}, {}, {}
+    for n, C in SHADE_SHAPES:
+        rows, base, sky, campos, view = shade_inputs(n, C, dev)
+        opts = shading.ShadeOptions(4, 1, C, True, False, False)
+        krow = (rows, base, sky.reshape(-1, 3), campos, view, lut, 4, 1)
+        fwd = lambda: shade_kernel.shade_forward(*krow, C, True, False, False)
+        plain = lambda: shading.shade_rows_plain(*rows, base, sky, campos, view, opts)
+        got, want = fwd()[0], plain()[0]
+        err = (got - want).abs()
+        g_out = torch.randn((n, C), device=dev, generator=torch.Generator(dev).manual_seed(1))
+        bwd = lambda: shade_kernel.shade_backward(*krow, True, False, g_out, None)
+        k_grads, k_again = bwd(), bwd()
+        if not all(torch.equal(a, b) for a, b in zip(k_grads, k_again)):
+            raise AssertionError(f"shade_backward at {n} rows: two runs differ")
+        xyz, rot, scl, alb, rough, met, is_sky = rows
+        leaves = [t.clone().requires_grad_(True) for t in (xyz, rot, alb, rough, met, base, sky)]
+        x, r_, a, ro, m, b, s_ = leaves
+        c_p, _ = shading.shade_rows_plain(x, r_, scl, a, ro, m, is_sky, b, s_, campos, view, opts)
+        loss = (c_p * g_out).sum()
+        p_grads = torch.autograd.grad(loss, leaves, retain_graph=True)
+        gaps = {}
+        for name, kg, pg in zip(("xyz", "rotation", "albedo", "roughness", "metalness",
+                                 "envlight", "sky_sh"), k_grads, p_grads):
+            d = (kg.reshape(pg.shape).double() - pg.double())
+            gaps[name] = float(d.norm() / pg.double().norm().clamp_min(1e-30))
+        torch.cuda.synchronize()
+        if float(err.max()) > 2e-4 or max(gaps.values()) > 1e-3:
+            raise AssertionError(f"shading at {n} rows: colours {float(err.max())}, "
+                                 f"gradients {gaps}")
+        k_ms, p_ms = device_ms(fwd, 20), device_ms(plain, 3)
+        kb_ms = device_ms(bwd, 10)
+        # A training pool's cotangents: zero past the 1.01M live rows, which S' skips.
+        g_pool = g_out.clone()
+        g_pool[min(n, 1_010_000):] = 0.0
+        kp_ms = device_ms(lambda: shade_kernel.shade_backward(*krow, True, False, g_pool, None), 10)
+        del g_pool
+        pb_ms = device_ms(lambda: torch.autograd.grad(loss, leaves, retain_graph=True), 3)
+        del loss, c_p, p_grads
+        fb = bound(n * (61 + 4 * C), n * SHADE_OPS)
+        bb = bound(n * (61 + 4 * C + 48), 3 * n * SHADE_OPS)
+        key = f"{n}x{C}"
+        out[key] = {"max_abs_err": float(err.max()),
+                    "share_over_1e-6": float((err > 1e-6).double().mean()),
+                    "grad_norm_gaps": gaps, "ms": k_ms, "plain_ms": p_ms, "bound_ms": fb[0],
+                    "bwd_ms": kb_ms, "bwd_ms_live_1010000": kp_ms, "bwd_plain_ms": pb_ms,
+                    "bwd_bound_ms": bb[0]}
+        rows_s[key] = dict(max_abs_err=float(err.max()), ms=k_ms, plain_ms=p_ms, bound_ms=fb[0],
+                           bound_by=fb[1], library_ms=None)
+        rows_b[key] = dict(max_abs_err=max(gaps.values()), ms=kb_ms, ms_live_1010000=kp_ms,
+                           plain_ms=pb_ms, bound_ms=bb[0], bound_by=bb[1], library_ms=None)
+        del rows, krow, got, want, err, g_out, k_grads, k_again, leaves
+        torch.cuda.empty_cache()
+    replaces = "none: the JAX package's XLA fusion of renderer.compute_colors"
+    source = "relightable3dgaussians_w_torch/csrc/shade.cu"
+    first, second = (f"{n}x{C}" for n, C in SHADE_SHAPES)
+    table = [dict(name="shade_forward", route="cuda", source=source, replaces=replaces,
+                  **rows_s[second], at_serve_shapes=rows_s[first]),
+             dict(name="shade_backward", route="cuda", source=source, replaces=replaces,
+                  **rows_b[second], at_serve_shapes=rows_b[first])]
+    return table, {"phase": "shading", "shapes": out}
+
+
+def shading_main() -> int:
+    """`python3 chip_smoke.py --shading`: the device line and the shading phase
+    alone."""
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    build.build(["shade"])
+    emit({"phase": "device", "kind": torch.cuda.get_device_name(0), "card": card_line(dev),
+          "kernel_build_s": time.perf_counter() - t0})
+    table, record = shading_phase(dev)
+    emit({**record, "card": card_line(dev)})
+    emit({"kernels": table})
+    return 0
 
 
 def stages_phase(host, dev, reps=5):
@@ -2801,6 +2918,11 @@ def main() -> int:
     t0 = time.perf_counter()
     scaling_rows, record = scaling_kernels_phase(dev)
     report({**record, "wall_s": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    shade_table, record = shading_phase(dev)
+    report({**record, "wall_s": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
 
     ts = TrainSetup(host, cam0, dev)
     a_step_row, train_table, record = train_kernels_phase(ts, dev)
@@ -2894,7 +3016,7 @@ def main() -> int:
     for row in b_rows.values():
         row.pop("at_trainer_shapes")
     table = (table[:1] + [iv_entry, i_entry] + table[1:] + [packed_row, train_table[0], b_rows[21],
-                                                    b_rows[51]] + train_table[1:])
+                                                    b_rows[51]] + train_table[1:] + shade_table)
     for entry in table:
         if entry["name"] in bench_rows:
             row = bench_rows[entry["name"]]
@@ -2905,7 +3027,7 @@ def main() -> int:
         entry["launches"] = sum(counts)
         entry["launches_by_path"] = dict(zip(paths, counts))
     extra = ("event_ms", "ms_parts", "at_train_step", "at_trainer_shapes", "at_bench_shapes",
-             "at_scaling_shapes")
+             "at_scaling_shapes", "at_serve_shapes", "ms_live_1010000")
     emit({"kernels": [{k: e[k] for k in keys + extra if k in e} for e in table]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2914,4 +3036,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(rank_main(sys.argv[2:]) if sys.argv[1:2] == ["--rank"] else main())
+    sys.exit(rank_main(sys.argv[2:]) if sys.argv[1:2] == ["--rank"]
+             else shading_main() if sys.argv[1:2] == ["--shading"] else main())

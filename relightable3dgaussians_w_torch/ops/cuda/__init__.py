@@ -3,14 +3,14 @@
 Each wrapper launches its kernel for a CUDA tensor and counts the launch in its
 module's `launches`; for a CPU tensor it calls the kernel's plain PyTorch
 version, which lives beside the code it replaces (`ops/preprocess.py`,
-`ops/binning.py`, `ops/composite.py`). A build or launch failure raises:
+`ops/binning.py`, `ops/composite.py`, `ops/shading.py`). A build or launch failure raises:
 there is no fallback.
 
 `KERNEL_COUNTERS` names each kernel's counter; `launch_counts()` reads them all
 and `reset_launches()` sets them all to 0.
 """
 
-from . import expand, row_intervals, segment_sum, tile_composite
+from . import expand, row_intervals, segment_sum, shade, tile_composite
 
 # Each CUDA kernel's launch counter: kernel -> (wrapper module, counter name).
 KERNEL_COUNTERS = {"row_intervals": (row_intervals, "launches"),
@@ -20,7 +20,9 @@ KERNEL_COUNTERS = {"row_intervals": (row_intervals, "launches"),
                    "composite_forward_packed": (tile_composite, "packed_launches"),
                    "composite_backward": (tile_composite, "backward_launches"),
                    "segment_sum_rows": (segment_sum, "launches"),
-                   "permute_entries": (segment_sum, "permute_launches")}
+                   "permute_entries": (segment_sum, "permute_launches"),
+                   "shade_forward": (shade, "launches"),
+                   "shade_backward": (shade, "backward_launches")}
 
 
 def launch_counts() -> dict:

@@ -13,8 +13,9 @@ Channel layout (with debug=True):
 debug=False drops channels 13:21 (13 channels).
 
 The per-Gaussian shading (`compute_colors`: the SH basis, Cook-Torrance, the
-sky colour and the concatenation of the channels) runs inside the
-`torch.profiler` range "renderer.shading", in serving and in training alike.
+sky colour and the channels; on the card one kernel, `csrc/shade.cu`) runs
+inside the `torch.profiler` range "renderer.shading", in serving and in
+training alike; its gradient inside "renderer.shading_backward".
 """
 
 from __future__ import annotations
@@ -25,10 +26,9 @@ import torch
 
 from .device import resolve_device
 from .models import gaussians as G
-from .models import light as L
 from .ops.rasterize import rasterize, RasterizerConfig, CameraMatrices
+from .ops.shading import ShadeOptions, shade_rows
 from .utils.graphics import depth_to_normal
-from .utils.sh import eval_sh
 
 
 class RenderOutput(NamedTuple):
@@ -63,50 +63,26 @@ def compute_colors(params: G.GaussianParams, state: G.GaussianState,
                    envlight_base: torch.Tensor, sky_sh: torch.Tensor,
                    envlight_sh_degree: int, sky_sh_degree: int,
                    campos: torch.Tensor, specular: bool = True, fix_sky: bool = False,
-                   debug: bool = True, rgb_only: bool = True):
-    """Per-Gaussian feature channels.
+                   debug: bool = True, rgb_only: bool = True, view_row: torch.Tensor | None = None,
+                   xyz: torch.Tensor | None = None, normals: bool = True):
+    """Per-Gaussian feature channels (`ops/shading.py` `shade_rows`: the shading
+    kernels on the card, the plain chain and its analytic gradient on the CPU).
 
     With rgb_only (the default here, the serving call) the shaded RGB; else the
     fused AOV channels of the module docstring (13, or 21 with debug), the
-    depth channel left zero for `render_inputs` to fill. Returns
-    (colors [N, 3 or C], normals [N, 3]).
+    depth channel filled from `view_row` (the view matrix's third row) where
+    it is given, else left zero. `xyz`: the merged positions when the caller
+    already has them (`G.get_xyz`). Returns (colors [N, 3 or C], normals
+    [N, 3], or None where `normals` is False).
     """
     with torch.profiler.record_function("renderer.shading"):
-        xyz = G.get_xyz(params, state)
-        albedo = G.get_albedo(params)
-        kr = G.get_roughness(params)
-        km = G.get_metalness(params)
-        is_sky = state.is_sky[:, None]
-
-        dir_pp = xyz - campos[None, :]
-        dir_pp_n = L.safe_normalize(dir_pp)
-        normal = G.get_normal(params, dir_pp_n)
-
-        shaded = L.shade(envlight_base, envlight_sh_degree, xyz, normal, albedo, campos,
-                         kr, km, specular=specular)
-
-        if fix_sky:
-            sky_rgb = torch.ones_like(xyz)
-        else:
-            sky_sh2rgb = eval_sh(sky_sh_degree, sky_sh.transpose(-1, -2), dir_pp_n)
-            sky_rgb = torch.clamp_min(sky_sh2rgb + 0.5, 0.0)
-
-        rgb = torch.where(is_sky, sky_rgb, shaded.rgb)
-        if rgb_only:
-            return rgb, normal
-        diffuse = torch.where(is_sky, 0.0, shaded.diffuse)
-        spec = torch.where(is_sky, 0.0, shaded.specular)
-        depth_feat = torch.zeros_like(xyz[:, :1])   # filled by render_inputs
-        normal_feat = 0.5 * normal + 0.5
-        channels = [rgb, diffuse, spec, depth_feat, normal_feat]
-        if debug:
-            channels += [
-                torch.where(is_sky, sky_rgb, 0.0),
-                torch.where(is_sky, 0.0, kr),
-                torch.where(is_sky, 0.0, km),
-                torch.where(is_sky, torch.ones_like(albedo), albedo),
-            ]
-        return torch.cat(channels, dim=-1), normal
+        if xyz is None:
+            xyz = G.get_xyz(params, state)
+        opts = ShadeOptions(envlight_sh_degree, sky_sh_degree,
+                            3 if rgb_only else 21 if debug else 13, specular, fix_sky, normals)
+        return shade_rows(xyz, params.rotation, params.scaling, params.albedo, params.roughness,
+                          params.metalness, state.is_sky, envlight_base, sky_sh, campos,
+                          view_row, opts)
 
 
 def render_rgb(params: G.GaussianParams, state: G.GaussianState,
@@ -138,7 +114,7 @@ def render_rgb(params: G.GaussianParams, state: G.GaussianState,
     opacity = G.get_opacity(params, state)
     rgb_g, _ = compute_colors(params, state, envlight_base, sky_sh,
                               envlight_sh_degree, sky_sh_degree, cam.campos,
-                              specular, fix_sky)
+                              specular, fix_sky, xyz=xyz, normals=False)
     return rasterize(xyz, scales, quats, opacity, rgb_g, bg_color, cam, rcfg,
                      active=state.alive, device=dev)
 
@@ -153,10 +129,7 @@ def render_inputs(params: G.GaussianParams, state: G.GaussianState,
     xyz = G.get_xyz(params, state)
     colors, _ = compute_colors(params, state, envlight_base, sky_sh, envlight_sh_degree,
                                sky_sh_degree, cam.campos, specular, fix_sky, debug,
-                               rgb_only=False)
-    v = cam.viewmat
-    depth_g = xyz[:, 0] * v[2, 0] + xyz[:, 1] * v[2, 1] + xyz[:, 2] * v[2, 2] + v[2, 3]
-    colors = torch.cat([colors[:, :9], depth_g[:, None], colors[:, 10:]], dim=-1)
+                               rgb_only=False, view_row=cam.viewmat[2], xyz=xyz, normals=False)
     return RenderInputs(xyz, G.get_scaling(params), G.get_rotation(params),
                         G.get_opacity(params, state), colors)
 

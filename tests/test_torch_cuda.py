@@ -22,6 +22,7 @@ from relightable3dgaussians_w_torch.ops.cuda import tile_composite as composite_
 from relightable3dgaussians_w_torch.scripts import selfcheck_train as SC
 
 from _interval_rows import edge_rows
+from _shade_rows import CAMPOS, VIEW_ROW, lighting, random_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -806,3 +807,167 @@ def test_device_ms_queued_matches_profiler(dev):
     assert queued is not None and profiled > 0
     assert abs(queued - profiled) < 0.1 * profiled, (queued, profiled)
     assert timing.queued_ms(lambda: float(rows[idx].sum()), 3) is None
+
+
+# ------------------------------------------------------------------ shading (S, S')
+#
+# Kernels S and S' (csrc/shade.cu) against the plain chain on the card
+# (ops/shading.py `shade_rows_plain`, and torch.autograd.grad of it), on
+# random rows led by `_shade_rows.edge_rows` (sky rows, n.v at its floor, the
+# LUT's four borders, roughness at 0.08, a padded pool row), at small sizes in
+# every layout and option, and at the cells' shapes (3.03M rows RGB, 8.16M rows
+# 13 channels with the view depth).
+#
+# Tolerances, and why. The kernel rounds the normal's chain as the plain ops
+# do, up to the last bit of a reciprocal square root, so the normals agree to
+# 1e-6 and the flip on every row. Elsewhere it contracts multiply-adds and
+# sums the envlight contraction in its own order: the FG LUT's 256 texels turn
+# a rounding of n.v or of the roughness (~6e-8) into a 256 times larger
+# fraction, and the gamma correction's slope (up to ~68 near its 1e-4 offset)
+# magnifies a dark colour's last bits, so colours agree within 2e-4, and at
+# most one value in 10^3 beyond 1e-6. Gradients: the same rounding, and a row
+# whose value lies within rounding of a clamp (the gamma's 0 and 1, the
+# irradiance, specular irradiance and n.v floors, the sky's 0) takes the other
+# side's sub-gradient in one version and not the other: the envlight's
+# 25-term sum cancels down to its 1e-4 floor on some rows. So a leaf holds if
+# at most one row in 10^3 (10^5 at the cells' shapes) differs by more than
+# 2e-4 (1e-3) of the leaf's largest gradient, every value of the envlight's
+# and the sky's row sums is within that, and at the cells' shapes the
+# difference's norm is under 1e-3 of the gradient's (on 4096 rows one such
+# row can carry most of the norm: 0.037 of xyz's, env 3 / sky 2 / 21 channels).
+
+SHADE_SMALL = [(env, sky, c, spec, fix) for (env, sky) in ((4, 1), (2, 0), (3, 2), (5, 5))
+               for c in (3, 13, 21) for spec, fix in ((True, False), (False, False), (True, True))
+               if (env, sky) == (4, 1) or (spec and not fix)]
+
+
+def _shade_inputs(dev, n, env, sky, channels, seed=0):
+    from relightable3dgaussians_w_torch.ops import shading
+
+    rows = tuple(t.to(dev) for t in random_rows(n, seed=seed, sky_share=0.01 if n > 10**6 else 0.2))
+    base, sky_sh = (t.to(dev) for t in lighting(env, sky, seed=seed + channels))
+    campos = torch.tensor(CAMPOS, device=dev)
+    view = torch.tensor(VIEW_ROW, device=dev) if channels == 13 else None
+    return shading, rows, base, sky_sh, campos, view
+
+
+def _shade_both(dev, n, env, sky, channels, spec, fix, normals=True, seed=0):
+    shading, rows, base, sky_sh, campos, view = _shade_inputs(dev, n, env, sky, channels, seed)
+    opts = shading.ShadeOptions(env, sky, channels, spec, fix, normals)
+    got = shading.shade_rows(*rows, base, sky_sh, campos, view, opts)
+    want = shading.shade_rows_plain(*rows, base, sky_sh, campos, view, opts)
+    torch.cuda.synchronize()
+    return got, want
+
+
+def _colors_close(got, want):
+    err = (got.double() - want.double()).abs()
+    stats = (float(err.max()), float((err > 1e-6).double().mean()))
+    assert stats[0] <= 2e-4 and stats[1] <= 1e-3, stats
+
+
+def _normals_close(got, want):
+    assert float((got - want).abs().max()) <= 1e-6, float((got - want).abs().max())
+    assert bool(((got * want).sum(-1) > 0).all())     # the same flip on every row
+
+
+def _grads_close(got, want, tol, rows_share, norm_gap=None):
+    for name, a, b in zip(("xyz", "rotation", "albedo", "roughness", "metalness", "envlight",
+                           "sky_sh"), got, want, strict=True):
+        if not b.any():
+            assert not a.any(), name
+            continue
+        a, b = a.reshape(b.shape).double(), b.double()
+        d = (a - b).abs()
+        far = (d > tol * b.abs().max()).reshape(b.shape[0], -1).any(-1)
+        stats = (float(far.double().mean()), float(d.norm() / b.norm()))
+        if b.shape[0] > 1000:
+            assert stats[0] <= rows_share, (name, stats)
+        else:     # the envlight's and the sky's sums: every value
+            assert stats[0] == 0.0, (name, stats)
+        assert norm_gap is None or stats[1] < norm_gap, (name, stats)
+
+
+@pytest.mark.parametrize("env, sky, channels, spec, fix", SHADE_SMALL)
+def test_shade_forward_kernel_matches_plain(dev, env, sky, channels, spec, fix):
+    (c, nrm), (c0, n0) = _shade_both(dev, 4096, env, sky, channels, spec, fix)
+    assert c.shape == c0.shape == (4096, channels)
+    _colors_close(c, c0)
+    _normals_close(nrm, n0)
+
+
+@pytest.mark.parametrize("n, channels", [(3_030_000, 3), (8_160_000, 13)])
+def test_shade_forward_kernel_at_the_cells_shapes(dev, n, channels):
+    (c, _), (c0, _) = _shade_both(dev, n, 4, 1, channels, True, False, normals=False)
+    _colors_close(c, c0)
+
+
+def _shade_grads(dev, n, env, sky, channels, spec, fix, seed=0):
+    """(kernel S' gradients, autograd of the plain chain) of every leaf."""
+    shading, rows, base, sky_sh, campos, view = _shade_inputs(dev, n, env, sky, channels, seed)
+    opts = shading.ShadeOptions(env, sky, channels, spec, fix, True)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    g_c = torch.randn((n, channels), generator=g, device=dev)
+    g_n = torch.randn((n, 3), generator=g, device=dev)
+    # Rows with all-zero cotangents, which S' skips: every 7th row, six whole
+    # tiles of 128, and at 8.16M rows a training pool's rows past its 1.01M live.
+    row = torch.arange(n, device=dev)
+    idle = (row % 7 == 3) | ((row >= 512) & (row < 1280)) | (row >= 1_010_000) & (n > 4_000_000)
+    g_c[idle], g_n[idle] = 0.0, 0.0
+    xyz, rot, scl, alb, rough, met, is_sky = rows
+    out = []
+    for fn in (shading.shade_rows, shading.shade_rows_plain):
+        leaves = [t.clone().requires_grad_(True) for t in (xyz, rot, alb, rough, met, base, sky_sh)]
+        x, r, a, ro, m, b, s = leaves
+        c, nrm = fn(x, r, scl, a, ro, m, is_sky, b, s, campos, view, opts)
+        grads = torch.autograd.grad((c * g_c).sum() + (nrm * g_n).sum(), leaves, allow_unused=True)
+        out.append([torch.zeros_like(t) if gr is None else gr for gr, t in zip(grads, leaves)])
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("env, sky, channels, spec, fix", SHADE_SMALL)
+def test_shade_backward_kernel_matches_autograd(dev, env, sky, channels, spec, fix):
+    got, want = _shade_grads(dev, 4096, env, sky, channels, spec, fix)
+    _grads_close(got, want, 2e-4, 1e-3)
+
+
+@pytest.mark.parametrize("n, channels", [(3_030_000, 3), (8_160_000, 13)])
+def test_shade_backward_kernel_at_the_cells_shapes(dev, n, channels):
+    got, want = _shade_grads(dev, n, 4, 1, channels, True, False)
+    _grads_close(got, want, 1e-3, 1e-5, 1e-3)
+
+
+def test_shade_backward_is_bitwise_repeatable(dev):
+    """No atomics: two backward runs give the same bits, the envlight's and the
+    sky SH's row sums included."""
+    a, _ = _shade_grads(dev, 1_000_003, 4, 1, 13, True, False, seed=3)
+    b, _ = _shade_grads(dev, 1_000_003, 4, 1, 13, True, False, seed=3)
+    for x, y in zip(a, b, strict=True):
+        assert torch.equal(x, y)
+
+
+def test_shade_launches_once_and_never_the_plain_chain(dev, monkeypatch):
+    """compute_colors and its gradient on the card: one launch of S, one of
+    S', and no call of the plain chain or its analytic gradient."""
+    from relightable3dgaussians_w_torch import renderer
+    from relightable3dgaussians_w_torch.ops import shading
+    from relightable3dgaussians_w_torch.ops.cuda import shade as shade_kernel
+
+    def refuse(*_, **__):
+        raise AssertionError("the plain chain ran on the card")
+
+    monkeypatch.setattr(shading, "shade_rows_plain", refuse)
+    monkeypatch.setattr(shading, "shade_rows_backward_plain", refuse)
+    p, s = synthetic.synthetic_scene(n=5000, n_sky=500, seed=1, device=dev)
+    p = G.GaussianParams(*[t.clone().requires_grad_(t.is_floating_point() and t.ndim > 0)
+                           for t in p])
+    base, sky = (t.to(dev).requires_grad_(True) for t in lighting(4, 1, seed=1))
+    cam = synthetic.camera(64, 64, device=dev)
+    shade_kernel.launches = shade_kernel.backward_launches = 0
+    inp = renderer.render_inputs(p, s, base, sky, cam, debug=False)
+    assert inp.colors.shape == (5500, 13)
+    inp.colors.sum().backward()
+    torch.cuda.synchronize()
+    assert (shade_kernel.launches, shade_kernel.backward_launches) == (1, 1)
+    assert p.rotation.grad is not None and base.grad is not None and sky.grad is not None
