@@ -211,6 +211,16 @@ Gaussians, random MLP weights from a seed), then:
             bounds; S' also with a training pool's cotangents (zero past 1.01M
             live rows). `python3 chip_smoke.py --shading` runs this phase
             alone.
+20. view_unpack: (after the shading phase) kernel V (`csrc/view_unpack.cu`:
+            a training photo's padded float32 canvas from its 8-bit bytes)
+            against its plain version (`view_store.unpack_view_plain`) on the
+            card, bitwise, at the photo collection's shapes on a 1600x1600
+            canvas (1200x1600, 1600x1200 and 1067x1600 photos with sky and
+            occluder masks, and a 1067x1600 RGBA frame over a white
+            background), into canvases filled with NaN first, with times and
+            byte bounds (the stored bytes read, 20 bytes a canvas pixel
+            written). The trainer phase's run launches it once an iteration.
+            `python3 chip_smoke.py --view-unpack` runs this phase alone.
 
 The serve phase also runs `rasterize_aux` (the untightened rects, as in JAX)
 on the first frame's inputs on the card and on the CPU: the card's binning
@@ -239,6 +249,7 @@ import contextlib
 import copy
 import datetime
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -588,6 +599,78 @@ def shading_main() -> int:
     emit({"phase": "device", "kind": torch.cuda.get_device_name(0), "card": card_line(dev),
           "kernel_build_s": time.perf_counter() - t0})
     table, record = shading_phase(dev)
+    emit({**record, "card": card_line(dev)})
+    emit({"kernels": table})
+    return 0
+
+
+# Kernel V's cases: (h, w, channels, masks) on a VIEW_CANVAS x VIEW_CANVAS canvas.
+VIEW_CANVAS = 1600
+VIEW_CASES = ((1200, 1600, 3, True), (1600, 1200, 3, True), (1067, 1600, 3, True),
+              (1067, 1600, 4, False))
+
+
+def view_unpack_phase(dev):
+    """Kernel V (`csrc/view_unpack.cu`) against its plain version on the card,
+    bitwise, at VIEW_CASES: the three canvases (image, sky mask, occluder
+    mask), written over NaN so that every element is checked; device times
+    (`device_ms`) and the byte bound (h w (channels + masks) read, 20 bytes a
+    canvas pixel written)."""
+    from relightable3dgaussians_w_torch.data.view_store import unpack_view_plain
+    from relightable3dgaussians_w_torch.ops.cuda import view_unpack
+
+    H = W = VIEW_CANVAS
+    canvas = lambda: (torch.full((H, W, 3), math.nan, device=dev),
+                      torch.full((H, W), math.nan, device=dev),
+                      torch.full((H, W), math.nan, device=dev))
+    cases, rows = {}, {}
+    for h, w, channels, masks in VIEW_CASES:
+        g = torch.Generator(device=dev).manual_seed(h * 7 + w + channels)
+        b = lambda *shape: torch.randint(0, 256, shape, generator=g, device=dev,
+                                         dtype=torch.uint8)
+        rgb = b(h, w, channels)
+        sky, occ = (b(h, w), b(h, w)) if masks else (None, None)
+        bg = 1.0 if channels == 4 else None
+        got, want = canvas(), canvas()
+        before = view_unpack.launches
+        view_unpack.unpack_view(rgb, sky, occ, bg, got)
+        unpack_view_plain(rgb, sky, occ, bg, want)
+        torch.cuda.synchronize()
+        if view_unpack.launches != before + 1:
+            raise AssertionError(f"view_unpack at {h}x{w}: {view_unpack.launches - before} "
+                                 "launches of V, 1 expected")
+        differ = sum(int((a != x).sum()) for a, x in zip(got, want))   # NaN != NaN
+        if differ:
+            raise AssertionError(f"view_unpack at {h}x{w}x{channels}: {differ} elements "
+                                 "differ from the plain version")
+        out = canvas()
+        k_ms = device_ms(lambda: view_unpack.unpack_view(rgb, sky, occ, bg, out), 20)
+        p_ms = device_ms(lambda: unpack_view_plain(rgb, sky, occ, bg, out), 3)
+        vb = bound(h * w * (channels + 2 * masks) + H * W * 20, 0)
+        key = f"{h}x{w}x{channels}" + ("_masks" if masks else "")
+        cases[key] = {"elements_differ": differ, "ms": k_ms, "plain_ms": p_ms,
+                      "bound_ms": vb[0], "roofline_pct": 100 * vb[0] / k_ms}
+        rows[key] = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=vb[0],
+                         bound_by=vb[1], library_ms=None)
+        del rgb, sky, occ, got, want, out
+    first = next(iter(rows))
+    row = dict(name="view_unpack", route="cuda",
+               source="relightable3dgaussians_w_torch/csrc/view_unpack.cu",
+               replaces="none: the JAX package keeps every padded float32 canvas "
+                        "(trainer.pad_cameras) on the device",
+               **rows[first], at_collection_shapes=rows)
+    return [row], {"phase": "view_unpack", "canvas": [H, W], "cases": cases}
+
+
+def view_unpack_main() -> int:
+    """`python3 chip_smoke.py --view-unpack`: the device line and the view
+    unpack phase alone."""
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    build.build(["view_unpack"])
+    emit({"phase": "device", "kind": torch.cuda.get_device_name(0), "card": card_line(dev),
+          "kernel_build_s": time.perf_counter() - t0})
+    table, record = view_unpack_phase(dev)
     emit({**record, "card": card_line(dev)})
     emit({"kernels": table})
     return 0
@@ -1187,7 +1270,7 @@ def train_kernels_phase(ts, dev):
 
 TRAIN_PATH = ("expand_entries", "composite_forward", "composite_backward", "segment_sum_rows",
               "permute_entries")
-TRAINER_PATH = ("row_intervals", "expand_entries_intervals") + TRAIN_PATH[1:]
+TRAINER_PATH = ("row_intervals", "expand_entries_intervals") + TRAIN_PATH[1:] + ("view_unpack",)
 
 
 def params_finite(state):
@@ -1533,6 +1616,9 @@ def trainer_phase(host, dev):
     missing = [k for k in TRAINER_PATH if launches[k] < 1]
     if missing:
         raise AssertionError(f"trainer: no launch of {missing}")
+    if launches["view_unpack"] < TRAINER_ITERS:   # each iteration's view is V's canvas
+        raise AssertionError(f"trainer: {launches['view_unpack']} launches of V in "
+                             f"{TRAINER_ITERS} iterations")
     dens = [r for r in events if r["event"] == "densify"]
     if {r["variant"] for r in dens} != {"plain", "sized"}:
         raise AssertionError(f"trainer: densify rounds {dens}")
@@ -2923,6 +3009,9 @@ def main() -> int:
     shade_table, record = shading_phase(dev)
     report({**record, "wall_s": time.perf_counter() - t0})
     torch.cuda.empty_cache()
+    view_table, record = view_unpack_phase(dev)
+    report(record)
+    torch.cuda.empty_cache()
 
     ts = TrainSetup(host, cam0, dev)
     a_step_row, train_table, record = train_kernels_phase(ts, dev)
@@ -3016,7 +3105,8 @@ def main() -> int:
     for row in b_rows.values():
         row.pop("at_trainer_shapes")
     table = (table[:1] + [iv_entry, i_entry] + table[1:] + [packed_row, train_table[0], b_rows[21],
-                                                    b_rows[51]] + train_table[1:] + shade_table)
+                                                    b_rows[51]] + train_table[1:] + shade_table
+             + view_table)
     for entry in table:
         if entry["name"] in bench_rows:
             row = bench_rows[entry["name"]]
@@ -3027,7 +3117,7 @@ def main() -> int:
         entry["launches"] = sum(counts)
         entry["launches_by_path"] = dict(zip(paths, counts))
     extra = ("event_ms", "ms_parts", "at_train_step", "at_trainer_shapes", "at_bench_shapes",
-             "at_scaling_shapes", "at_serve_shapes", "ms_live_1010000")
+             "at_scaling_shapes", "at_serve_shapes", "ms_live_1010000", "at_collection_shapes")
     emit({"kernels": [{k: e[k] for k in keys + extra if k in e} for e in table]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3037,4 +3127,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.exit(rank_main(sys.argv[2:]) if sys.argv[1:2] == ["--rank"]
-             else shading_main() if sys.argv[1:2] == ["--shading"] else main())
+             else shading_main() if sys.argv[1:2] == ["--shading"]
+             else view_unpack_main() if sys.argv[1:2] == ["--view-unpack"] else main())

@@ -78,7 +78,7 @@ def main(argv=None):
         prior_dir = f"{cfg.dataset.source_path}/train/envmaps_init"
         priors = {f: np.load(f"{prior_dir}/{f}") for f in sorted(os.listdir(prior_dir))
                   if f.endswith(".npy")}
-        names = [v["cam"].image_name for v in trainer.train_views]
+        names = [c.image_name for c in trainer.train_cameras]
         gen = torch.Generator(device=dev).manual_seed(cfg.runtime.seed + 2)
         mlp_params = initialize_sh_mlp(gen, trainer.mlp, trainer.state.params["mlp"],
                                        trainer.state.params["embeddings"], names, priors)

@@ -3,7 +3,9 @@ package's `data/cameras.py` (the reference's `Camera`).
 
 A plain dataclass of numpy arrays on the host; `matrices(device)` gives the
 rasterizer's `CameraMatrices` as tensors on a device. Matrices use the math
-convention (M @ p).
+convention (M @ p). A camera that a reader made holds no pixels: its `source`
+(`data/readers.PhotoSource`) decodes `image`, `sky_mask` and
+`occluders_mask` each time one is read.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ class Camera:
     cy: float | None = None
     trans: np.ndarray = field(default_factory=lambda: np.zeros(3))
     scale: float = 1.0
+    source: object = field(default=None, init=False, repr=False, compare=False)
 
     def __post_init__(self):
         self.world_view = world_to_view(self.R, self.T, self.trans, self.scale)
@@ -79,6 +82,26 @@ class Camera:
         u = K[0, 0] * uv[:, 0] + K[0, 2]
         v = K[1, 1] * uv[:, 1] + K[1, 2]
         return np.stack([u, v], axis=-1)
+
+
+def _pixels(name: str) -> property:
+    """A pixel field: the array the camera was given, else decoded from its
+    source at each read (nothing is kept)."""
+
+    def get(self):
+        value = self.__dict__[name]
+        if value is None and self.source is not None:
+            return getattr(self.source, name)()
+        return value
+
+    def put(self, value):
+        self.__dict__[name] = value
+
+    return property(get, put)
+
+
+for _name in ("image", "sky_mask", "occluders_mask"):
+    setattr(Camera, _name, _pixels(_name))
 
 
 def scene_center(cameras: list[Camera]) -> np.ndarray:

@@ -2,14 +2,23 @@
 
 Port of the JAX package's `data/readers.py` (the reference's
 `scene/dataset_readers.py` with the resolution policy of
-`utils/camera_utils.py`: images wider than 1.6k are downscaled). Images are
-decoded with PIL to float32 HWC numpy; masks to [H, W] float.
+`utils/camera_utils.py`: images wider than 1.6k are downscaled).
+
+A reader sizes each photo from its file's header and decodes nothing: each
+`Camera` gets a `PhotoSource`. One decoder reads the files with PIL to their
+8-bit bytes (`PhotoSource.image_u8`, `mask_u8`); a camera's `image`,
+`sky_mask` and `occluders_mask` are those bytes over 255 (float32 HWC numpy
+in [0, 1], masks [H, W] float32, as the JAX package's readers give them),
+made when read and not kept. The trainer's view store (`data/view_store.py`)
+keeps the bytes, decoded on a thread pool (`decode_each`), so no float32 copy
+of a training collection is made.
 """
 
 from __future__ import annotations
 
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
 
 import numpy as np
@@ -42,20 +51,83 @@ def _resolve_resolution(orig_w: int, orig_h: int, resolution: int, resolution_sc
     return int(orig_w / scale), int(orig_h / scale)
 
 
-def _load_image(path: str, size) -> np.ndarray:
-    img = Image.open(path)
-    img = img.resize(size)
-    arr = np.asarray(img, dtype=np.float32) / 255.0
-    if arr.ndim == 2:
-        arr = arr[..., None].repeat(3, axis=-1)
-    return np.clip(arr[..., :3], 0.0, 1.0)
+# A byte over 255 in float32, as numpy divides: every photo and mask is read
+# as this table at its bytes (the view store's kernel V uses the same).
+UNIT = np.arange(256, dtype=np.float32) / 255.0
 
 
-def _load_mask(path: str, size) -> np.ndarray | None:
-    if not os.path.exists(path):
-        return None
-    m = Image.open(path).convert("L").resize(size)
-    return np.asarray(m, dtype=np.float32) / 255.0
+def _u8(img: Image.Image, path: str) -> np.ndarray:
+    arr = np.array(img)      # writable, so torch.from_numpy takes it as it is
+    if arr.dtype != np.uint8:
+        raise ValueError(f"{path}: {img.mode} pixels; photos and masks are read as 8-bit")
+    return arr
+
+
+class PhotoSource(NamedTuple):
+    """Where a camera's photo and masks are decoded from, at what size.
+
+    COLMAP and NeRF-OSR photos (`background` None) give RGB: a grey photo
+    repeated over three channels, extra channels dropped. A Blender frame
+    (`background` set) with alpha is composited over the background."""
+    image_path: str
+    size: tuple                           # (W, H) after the resolution policy
+    sky_mask_path: str | None = None
+    occluders_mask_path: str | None = None
+    background: float | None = None
+
+    def image(self) -> np.ndarray:
+        """[H, W, 3] float32: `image_u8()` over 255, an RGBA frame composited
+        over the background."""
+        arr = UNIT[self.image_u8()]
+        if arr.shape[-1] == 4:
+            arr = arr[..., :3] * arr[..., 3:4] + self.background * (1 - arr[..., 3:4])
+        return arr
+
+    def sky_mask(self) -> np.ndarray | None:
+        m = self.mask_u8("sky_mask")
+        return None if m is None else UNIT[m]
+
+    def occluders_mask(self) -> np.ndarray | None:
+        m = self.mask_u8("occluders_mask")
+        return None if m is None else UNIT[m]
+
+    def image_u8(self) -> np.ndarray:
+        """[H, W, 3] uint8 (a Blender frame with alpha: [H, W, 4]). Photos
+        are 8-bit: another depth raises."""
+        with Image.open(self.image_path) as img:
+            arr = _u8(img.resize(self.size), self.image_path)
+        if self.background is None:
+            if arr.ndim == 2:
+                arr = arr[..., None].repeat(3, axis=-1)
+            arr = arr[..., :3]
+        elif arr.ndim != 3 or arr.shape[-1] not in (3, 4):
+            raise ValueError(f"{self.image_path}: {arr.shape} pixels, RGB or RGBA expected")
+        return np.ascontiguousarray(arr)
+
+    def mask_u8(self, which: str) -> np.ndarray | None:
+        """[H, W] uint8 of "sky_mask" or "occluders_mask" (None where the
+        camera has none)."""
+        path = getattr(self, which + "_path")
+        if not path or not os.path.exists(path):
+            return None
+        with Image.open(path) as m:
+            return _u8(m.convert("L").resize(self.size), path)
+
+
+def decode_each(items, fn, workers: int | None = None):
+    """fn(item) for each item on a thread pool (PIL releases the GIL while it
+    decodes), yielded in order; at most 2 x workers results are held at once."""
+    items = list(items)
+    workers = workers or min(16, os.cpu_count() or 1)
+    window = 2 * workers
+    with ThreadPoolExecutor(workers) as pool:
+        pending = [pool.submit(fn, x) for x in items[:window]]
+        for i in range(len(items)):
+            out = pending[i].result()
+            pending[i] = None
+            if i + window < len(items):
+                pending.append(pool.submit(fn, items[i + window]))
+            yield out
 
 
 class CameraInfo(NamedTuple):
@@ -114,23 +186,28 @@ def _read_colmap_cameras(path: str, images_dir: str, sky_masks_dir: str | None,
     return sorted(infos, key=lambda c: c.image_name)
 
 
+def _photo_size(path: str, resolution: int, resolution_scale: float = 1.0):
+    with Image.open(path) as probe:
+        ow, oh = probe.size
+    return _resolve_resolution(ow, oh, resolution, resolution_scale)
+
+
+def _lazy_camera(source: PhotoSource, **fields) -> Camera:
+    cam = Camera(image=None, sky_mask=None, occluders_mask=None, width=source.size[0],
+                 height=source.size[1], **fields)
+    cam.source = source
+    return cam
+
+
 def _materialize(infos, resolution: int, resolution_scale: float = 1.0) -> list[Camera]:
+    """Cameras sized from their files' headers; pixels are decoded when read."""
     cams = []
     for i, info in enumerate(infos):
-        with Image.open(info.image_path) as probe:
-            ow, oh = probe.size
-        size = _resolve_resolution(ow, oh, resolution, resolution_scale)
-        image = _load_image(info.image_path, size)
-        sky = _load_mask(info.sky_mask_path, size) if info.sky_mask_path else None
-        occ = _load_mask(info.occluders_mask_path, size) if info.occluders_mask_path else None
-        cams.append(
-            Camera(
-                uid=i, colmap_id=info.uid, R=info.R, T=info.T, fovx=info.fovx,
-                fovy=info.fovy, image_name=info.image_name, image=image,
-                sky_mask=sky, occluders_mask=occ,
-                width=image.shape[1], height=image.shape[0], cx=info.cx, cy=info.cy,
-            )
-        )
+        size = _photo_size(info.image_path, resolution, resolution_scale)
+        src = PhotoSource(info.image_path, size, info.sky_mask_path, info.occluders_mask_path)
+        cams.append(_lazy_camera(src, uid=i, colmap_id=info.uid, R=info.R, T=info.T,
+                                 fovx=info.fovx, fovy=info.fovy, image_name=info.image_name,
+                                 cx=info.cx, cy=info.cy))
     return cams
 
 
@@ -215,23 +292,11 @@ def read_blender_info(path: str, white_background: bool, eval: bool,
             w2c = np.linalg.inv(c2w)
             R = np.transpose(w2c[:3, :3])
             T = w2c[:3, 3]
-            with Image.open(file_path) as probe:
-                ow, oh = probe.size
-            size = _resolve_resolution(ow, oh, resolution)
-            img = Image.open(file_path).resize(size)
-            arr = np.asarray(img, dtype=np.float32) / 255.0
-            if arr.shape[-1] == 4:
-                bg = 1.0 if white_background else 0.0
-                arr = arr[..., :3] * arr[..., 3:4] + bg * (1 - arr[..., 3:4])
+            size = _photo_size(file_path, resolution)
             fovy = focal2fov(fov2focal(fovx, size[0]), size[1])
-            cams.append(
-                Camera(
-                    uid=i, colmap_id=i, R=R, T=T, fovx=fovx, fovy=fovy,
-                    image_name=os.path.basename(frame["file_path"]), image=arr,
-                    sky_mask=None, occluders_mask=None,
-                    width=size[0], height=size[1],
-                )
-            )
+            src = PhotoSource(file_path, size, background=1.0 if white_background else 0.0)
+            cams.append(_lazy_camera(src, uid=i, colmap_id=i, R=R, T=T, fovx=fovx, fovy=fovy,
+                                     image_name=os.path.basename(frame["file_path"])))
         return cams
 
     train_cams = read_split("transforms_train.json")

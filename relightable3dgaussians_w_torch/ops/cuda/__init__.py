@@ -10,7 +10,7 @@ there is no fallback.
 and `reset_launches()` sets them all to 0.
 """
 
-from . import expand, row_intervals, segment_sum, shade, tile_composite
+from . import expand, row_intervals, segment_sum, shade, tile_composite, view_unpack
 
 # Each CUDA kernel's launch counter: kernel -> (wrapper module, counter name).
 KERNEL_COUNTERS = {"row_intervals": (row_intervals, "launches"),
@@ -22,7 +22,8 @@ KERNEL_COUNTERS = {"row_intervals": (row_intervals, "launches"),
                    "segment_sum_rows": (segment_sum, "launches"),
                    "permute_entries": (segment_sum, "permute_launches"),
                    "shade_forward": (shade, "launches"),
-                   "shade_backward": (shade, "backward_launches")}
+                   "shade_backward": (shade, "backward_launches"),
+                   "view_unpack": (view_unpack, "launches")}
 
 
 def launch_counts() -> dict:

@@ -40,6 +40,9 @@ KERNELS = {
     # Contraction on: the shading feeds colours and gradients, no predicate;
     # its one sign test (the normal's flip) rounds by hand.
     "shade": ("shade.cu", []),
+    # The division by 255 and the composite round by hand (__fdiv_rn,
+    # __fmul_rn, ...), as numpy does in the readers.
+    "view_unpack": ("view_unpack.cu", []),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -34,10 +34,15 @@ the host for the sky seeding and the initial MLP and embeddings, one on the
 device for the step draws and the split noise); the view order is the JAX
 trainer's `np.random.RandomState(seed)` sequence.
 
+The training photos live on the device in a view store
+(`data/view_store.py`), each once at its own size in 8 bits; each step's
+padded float32 view is built from it (`ViewStore.fetch`). `train_views` is
+that store: `train_views[i]` gives a padded view dict, as `pad_cameras` makes.
+
 Each iteration of the loop runs inside the `torch.profiler` range
 "trainer.iteration", and its read of the previous step's overflow count (which
 waits for that step on the device) and any healing inside
-"trainer.overflow_read".
+"trainer.overflow_read"; the view's build inside "trainer.view_fetch".
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ from .config import Config, config_to_dict
 from .data.cameras import Camera, camera_to_json, scene_center
 from .data.ply import read_ply, write_ply
 from .data.readers import load_scene_info
+from .data.view_store import ViewStore
 from .device import resolve_device
 from .models import gaussians as G
 from .models.nets import MLPNet
@@ -87,10 +93,9 @@ def pad_cameras(cams: list[Camera]):
         h, w = c.height, c.width
         img = np.zeros((H, W, 3), np.float32)
         img[:h, :w] = c.image
-        sky = np.zeros((H, W), np.float32)
-        sky[:h, :w] = c.sky_mask if c.sky_mask is not None else 1.0
-        occ = np.zeros((H, W), np.float32)
-        occ[:h, :w] = c.occluders_mask if c.occluders_mask is not None else 1.0
+        sky, occ = np.zeros((H, W), np.float32), np.zeros((H, W), np.float32)
+        for canvas, mask in ((sky, c.sky_mask), (occ, c.occluders_mask)):   # each read once
+            canvas[:h, :w] = mask if mask is not None else 1.0
         out.append(dict(cam=c, image=img, sky_mask=sky, occluders_mask=occ))
     return out, H, W
 
@@ -139,19 +144,6 @@ class _ViewerHost:
         trainer.mlp.load_state_dict(p["mlp"])   # training reads p["mlp"] functionally
         self.mlp = trainer.mlp
         self.state = ServeState(p["gaussians"], trainer.state.gauss_state, p["embeddings"])
-
-
-def pad_views(views, H: int, W: int):
-    """Padded views re-padded to a larger (H, W) canvas (masks 0 outside)."""
-    out = []
-    for v in views:
-        canvas = {}
-        for k, shape in (("image", (H, W, 3)), ("sky_mask", (H, W)), ("occluders_mask", (H, W))):
-            a = np.zeros(shape, np.float32)
-            a[: v[k].shape[0], : v[k].shape[1]] = v[k]
-            canvas[k] = a
-        out.append(dict(v, **canvas))
-    return out
 
 
 class Relightable3DGWTrainer:
@@ -204,15 +196,16 @@ class Relightable3DGWTrainer:
         self.train_cameras = info.train_cameras
         self.test_cameras = info.test_cameras
         self.cameras_extent = info.nerf_normalization["radius"]
-        views, self.H, self.W = pad_cameras(self.train_cameras)
+        # The canvas is the largest (H, W) of the training photos.
+        self.H = max(c.height for c in self.train_cameras)
+        self.W = max(c.width for c in self.train_cameras)
         if self.gauss_ax > 1:
             # One band of tile rows per gauss rank: pad the height so grid_y
             # divides (padded pixels have occluders_mask 0 and drop out of
             # every loss).
             quant = 16 * self.gauss_ax
             self.H = -(-self.H // quant) * quant
-            views = pad_views(views, self.H, self.W)
-        self.train_views = [self._to_device(v) for v in views]   # images go over once
+        self.train_views = ViewStore(self.train_cameras, self.H, self.W, dev)
         timings["scene_s"] = time.perf_counter() - t0
 
         # ---- Gaussian pool
@@ -363,20 +356,21 @@ class Relightable3DGWTrainer:
                                 self._heal_binning_overflow(prev_it, n_over)
                         prev_overflow = None
 
-                    views = []
+                    picked = []
                     for _ in range(B):
                         if not view_stack:
                             view_stack = list(range(len(self.train_views)))
-                        views.append(self.train_views[view_stack.pop(rng.randint(len(view_stack)))])
+                        picked.append(view_stack.pop(rng.randint(len(view_stack))))
                     if self.mesh is None:
-                        view = views[0]
+                        i = picked[0]
+                        image, sky, occ = self.train_views.fetch(i)
                         draws = TS.make_draws(self.gen, self.mlp, cfg)
                         self.state, aux = TS.train_step(
-                            self.state, view["mats"], view["image_t"], view["sky_t"], view["occ_t"],
-                            view["cam"].uid, draws, self.bg_color, self.mlp, cfg, self.rcfg,
-                            device=self.device)
+                            self.state, self.train_views.mats[i], image, sky, occ,
+                            self.train_cameras[i].uid, draws, self.bg_color, self.mlp, cfg,
+                            self.rcfg, device=self.device)
                     else:
-                        self.state, aux = self._dp_train_step(views)
+                        self.state, aux = self._dp_train_step(picked)
                     prev_overflow = aux.overflow
 
                     if viewer is not None:
@@ -469,8 +463,7 @@ class Relightable3DGWTrainer:
         xyz, scales, quats = G.get_xyz(p, s), G.get_scaling(p), G.get_rotation(p)
         op = G.get_opacity(p, s)[:, 0] * s.alive
         rects, ivs = [], []
-        for v in self.train_views[:: max(len(self.train_views) // 8, 1)][:8]:
-            cam = v["mats"]
+        for cam in self.train_views.mats[:: max(len(self.train_views) // 8, 1)][:8]:
             pre = preprocess(xyz, scales, quats, cam.viewmat, cam.projmat, cam.tan_fovx,
                              cam.tan_fovy, self.W, self.H, 16, opacities=op)
             rects.append(int(pre.tiles_touched.sum()))
@@ -499,19 +492,20 @@ class Relightable3DGWTrainer:
         """Take a full state: this rank's shard of it under a mesh."""
         self.state = state if self.mesh is None else DP.shard_train_state(state, self.mesh)
 
-    def _dp_train_step(self, views):
-        """One data-parallel step over B = len(views) cameras: every rank draws
-        all B images' StepDraws, in order, so the generators stay in step; data
-        row d takes camera and draws d. The overflow is the max over all ranks,
-        so every rank heals the entry budget alike."""
-        st = lambda k: torch.stack([v[k] for v in views])
-        mats = [v["mats"] for v in views]
+    def _dp_train_step(self, picked):
+        """One data-parallel step over B = len(picked) training views: every
+        rank draws all B images' StepDraws, in order, so the generators stay in
+        step; data row d takes view picked[d] and draws d. The overflow is the
+        max over all ranks, so every rank heals the entry budget alike."""
+        canvases = [self.train_views.fetch(i, slot=d) for d, i in enumerate(picked)]
+        st = lambda k: torch.stack([c[k] for c in canvases])
+        mats = [self.train_views.mats[i] for i in picked]
         batch = DP.CameraBatch(
             *[torch.stack([getattr(m, f) for m in mats]) for f in
               ("viewmat", "projmat", "campos", "tan_fovx", "tan_fovy")],
-            gt_image=st("image_t"), sky_mask=st("sky_t"), occluders_mask=st("occ_t"),
-            uid=torch.tensor([v["cam"].uid for v in views], device=self.device))
-        draws = [TS.make_draws(self.gen, self.mlp, self.cfg) for _ in views]
+            gt_image=st(0), sky_mask=st(1), occluders_mask=st(2),
+            uid=torch.tensor([self.train_cameras[i].uid for i in picked], device=self.device))
+        draws = [TS.make_draws(self.gen, self.mlp, self.cfg) for _ in picked]
         step = DP.make_dp_train_step(self.mlp, self.cfg, self.rcfg, self.mesh)
         state, metrics = step(self.state, batch, draws, self.bg_color)
         PC.all_reduce_(metrics.overflow, None, op=dist.ReduceOp.MAX)
@@ -662,9 +656,8 @@ class Relightable3DGWTrainer:
         envl_dir = self._iter_dir("envlights_sh", iteration)
         envl, _ = functional_call(self.mlp, state.params["mlp"], (emb,))
         envl = envl.cpu().numpy()
-        for i, view in enumerate(self.train_views):
-            np.save(os.path.join(envl_dir, f"envlight_sh_{view['cam'].image_name}.npy"),
-                    envl[i])
+        for i, cam in enumerate(self.train_cameras):
+            np.save(os.path.join(envl_dir, f"envlight_sh_{cam.image_name}.npy"), envl[i])
 
         np.savez(os.path.join(self._iter_dir("full_state", iteration), "state.npz"),
                  **{f"leaf_{i}": a for i, a in enumerate(CK.state_leaves(state))})

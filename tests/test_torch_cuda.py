@@ -971,3 +971,31 @@ def test_shade_launches_once_and_never_the_plain_chain(dev, monkeypatch):
     torch.cuda.synchronize()
     assert (shade_kernel.launches, shade_kernel.backward_launches) == (1, 1)
     assert p.rotation.grad is not None and base.grad is not None and sky.grad is not None
+
+
+@pytest.mark.parametrize("h, w, H, W, channels, masks", [
+    (1, 1, 1, 1, 3, True), (7, 5, 9, 11, 3, True), (30, 17, 30, 21, 3, False),
+    (27, 40, 40, 40, 3, True), (33, 20, 40, 36, 4, False), (13, 13, 13, 13, 4, True),
+    (1200, 1600, 1600, 1600, 3, True), (1600, 1200, 1600, 1600, 3, True),
+    (1067, 1600, 1600, 1600, 3, True)])
+def test_view_unpack_kernel_matches_plain(dev, h, w, H, W, channels, masks):
+    """Kernel V against its plain version (`view_store.unpack_view_plain`),
+    bitwise: odd and aligned widths, a photo that fills the canvas, RGBA over
+    a background, cameras with and without masks, the collection's sizes."""
+    from relightable3dgaussians_w_torch.data.view_store import unpack_view_plain
+    from relightable3dgaussians_w_torch.ops.cuda import view_unpack
+
+    g = torch.Generator().manual_seed(h * 7 + w)
+    b = lambda *s: torch.randint(0, 256, s, generator=g, dtype=torch.uint8)
+    rgb, sky, occ = b(h, w, channels), b(h, w) if masks else None, b(h, w) if masks else None
+    bg = 1.0 if channels == 4 else None
+    canvas = lambda d: (torch.full((H, W, 3), 7.0, device=d), torch.full((H, W), 7.0, device=d),
+                        torch.full((H, W), 7.0, device=d))
+    want = unpack_view_plain(rgb, sky, occ, bg, canvas("cpu"))
+    to = lambda t: None if t is None else t.to(dev)
+    before = view_unpack.launches
+    got = view_unpack.unpack_view(to(rgb), to(sky), to(occ), bg, canvas(dev))
+    torch.cuda.synchronize()
+    assert view_unpack.launches == before + 1
+    for a, x in zip(got, want):
+        assert torch.equal(a.cpu(), x)
