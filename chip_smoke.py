@@ -221,6 +221,15 @@ Gaussians, random MLP weights from a seed), then:
             byte bounds (the stored bytes read, 20 bytes a canvas pixel
             written). The trainer phase's run launches it once an iteration.
             `python3 chip_smoke.py --view-unpack` runs this phase alone.
+21. preprocess: (after the view unpack phase) kernels R and R'
+            (`csrc/preprocess.cu`: the projection, EWA covariance, conic and
+            tile rects, and their gradient) against the plain chain on the
+            card at the cells' shapes (8.16M rows at 800x800 with 1.01M live,
+            3.03M rows at 1600x1067): every field of R bitwise, R' within
+            5e-3 of each leaf's largest gradient (autograd's over the plain
+            chain, the cotangents on the rows with tiles), two R' runs
+            bitwise, one launch of each a call, times and byte bounds.
+            `python3 chip_smoke.py --preprocess` runs this phase alone.
 
 The serve phase also runs `rasterize_aux` (the untightened rects, as in JAX)
 on the first frame's inputs on the card and on the CPU: the card's binning
@@ -599,6 +608,128 @@ def shading_main() -> int:
     emit({"phase": "device", "kind": torch.cuda.get_device_name(0), "card": card_line(dev),
           "kernel_build_s": time.perf_counter() - t0})
     table, record = shading_phase(dev)
+    emit({**record, "card": card_line(dev)})
+    emit({"kernels": table})
+    return 0
+
+
+# The cells' preprocess calls: train-1m-800's 8.16M-row pool at 800x800 (the
+# 13-channel training call: opacities, `active`, 1.01M live rows) and
+# serve-3m-1600's 3.03M rows at 1600x1067 (every row live).
+PRE_SHAPES = ((8_160_000, 800, 800, 1_010_000), (3_030_000, 1600, 1067, 3_030_000))
+PRE_FWD_BYTES = 117     # a row: 45 read (means, scales, quats, opacity, active), 72 written
+PRE_BWD_BYTES = 104     # a row: 40 of inputs and 24 of cotangents read, 40 written
+
+
+def preprocess_inputs(n, live, dev, seed=0):
+    """A pool's rows as the cells hold them: positions uniform in [-2, 2]^2 x
+    [1, 8] in front of the camera, scales exp(N(-4.5, 0.5^2)), random
+    rotations, opacities uniform in (0, 1); rows past `live` inactive."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = lambda *shape: torch.rand(shape, generator=g, device=dev)
+    means = u(n, 3) * torch.tensor([4.0, 4.0, 7.0], device=dev) \
+        + torch.tensor([-2.0, -2.0, 1.0], device=dev)
+    scales = torch.exp(torch.randn((n, 3), generator=g, device=dev) * 0.5 - 4.5)
+    quats = torch.randn((n, 4), generator=g, device=dev)
+    quats = quats / quats.norm(dim=-1, keepdim=True)
+    active = torch.arange(n, device=dev) < live
+    return means, scales, quats, u(n), active
+
+
+def preprocess_phase(dev):
+    """Kernels R and R' (`csrc/preprocess.cu`) against the plain chain on the
+    card at the cells' shapes (PRE_SHAPES): every field of R bitwise, R'
+    within 5e-3 of each leaf's largest gradient of autograd's over the plain
+    chain (the cotangents of the gather's transpose: random on the rows with
+    tiles, 0 elsewhere), two R' runs bitwise, one launch each a call
+    (`launch_counts`), device times (`device_ms`) and byte bounds
+    (PRE_FWD_BYTES, PRE_BWD_BYTES a row)."""
+    from relightable3dgaussians_w_torch.ops import preprocess as P
+
+    out, rows_f, rows_b = {}, {}, {}
+    for n, W, H, live in PRE_SHAPES:
+        means, scales, quats, opac, active = preprocess_inputs(n, live, dev)
+        cam = synthetic.camera(W, H, viewmat=np.array(
+            [[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 0.5], [0, 0, 0, 1]], np.float32), device=dev)
+        call = lambda fn, m, s, q: fn(m, s, q, cam.viewmat, cam.projmat, cam.tan_fovx,
+                                      cam.tan_fovy, W, H, 16, active=active, opacities=opac)
+        reset_launches()
+        got = call(P.preprocess, means, scales, quats)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        with torch.no_grad():
+            want = call(P.preprocess_plain, means, scales, quats)
+        differ = {}
+        for f in P.PreprocessOut._fields:
+            a, b = getattr(got, f), getattr(want, f)
+            if a.is_floating_point():
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            differ[f] = int((a != b).sum())
+        del want
+        # The gather's transpose: cotangents on the rows with tiles, 0 elsewhere.
+        gen = torch.Generator(device=dev).manual_seed(1)
+        has = (got.tiles_touched > 0)[:, None]
+        g_m = torch.randn((n, 2), generator=gen, device=dev) * has
+        g_c = torch.randn((n, 3), generator=gen, device=dev) * has
+        leaves = [t.clone().requires_grad_(True) for t in (means, scales, quats)]
+        k_pre = call(P.preprocess, *leaves)
+        kernel_grads = lambda: torch.autograd.grad([k_pre.mean2d, k_pre.conic], leaves,
+                                                   [g_m, g_c], retain_graph=True)
+        reset_launches()
+        k_grads, k_again = kernel_grads(), kernel_grads()
+        torch.cuda.synchronize()
+        bwd_counts = launch_counts()
+        repeat = all(torch.equal(a, b) for a, b in zip(k_grads, k_again))
+        p_pre = call(P.preprocess_plain, *leaves)
+        plain_grads = lambda: torch.autograd.grad([p_pre.mean2d, p_pre.conic], leaves,
+                                                  [g_m, g_c], retain_graph=True)
+        p_grads = plain_grads()
+        gaps = {name: float((kg - pg).abs().max() / pg.abs().max().clamp_min(1e-30))
+                for name, kg, pg in zip(("means3d", "scales", "quats"), k_grads, p_grads)}
+        torch.cuda.synchronize()
+        if any(differ.values()) or max(gaps.values()) >= 5e-3 or not repeat \
+                or counts["preprocess_forward"] != 1 or bwd_counts["preprocess_backward"] != 2:
+            raise AssertionError(f"preprocess at {n} rows: fields differing {differ}, "
+                                 f"gradient gaps {gaps}, R' repeats {repeat}, launches "
+                                 f"{counts['preprocess_forward']} and "
+                                 f"{bwd_counts['preprocess_backward']} (1 and 2 expected)")
+        k_ms = device_ms(lambda: call(P.preprocess, means, scales, quats), 20)
+        with torch.no_grad():
+            p_ms = device_ms(lambda: call(P.preprocess_plain, means, scales, quats), 3)
+        kb_ms = device_ms(kernel_grads, 10)
+        pb_ms = device_ms(plain_grads, 3)
+        fb = bound(n * PRE_FWD_BYTES, 0)
+        bb = bound(n * PRE_BWD_BYTES, 0)
+        key = f"{n}@{W}x{H}"
+        out[key] = {"fields_differing": differ, "grad_max_rel_gaps": gaps,
+                    "bwd_bitwise_repeat": repeat, "rows_with_tiles": int(has.sum()),
+                    "ms": k_ms, "plain_ms": p_ms, "bound_ms": fb[0],
+                    "bwd_ms": kb_ms, "bwd_plain_ms": pb_ms, "bwd_bound_ms": bb[0]}
+        rows_f[key] = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=fb[0],
+                           bound_by=fb[1], library_ms=None)
+        rows_b[key] = dict(max_abs_err=max(gaps.values()), ms=kb_ms, plain_ms=pb_ms,
+                           bound_ms=bb[0], bound_by=bb[1], library_ms=None)
+        del got, k_pre, p_pre, k_grads, k_again, p_grads, leaves, means, scales, quats
+        torch.cuda.empty_cache()
+    replaces = "none: the JAX package's XLA fusion of ops/preprocess.py preprocess"
+    source = "relightable3dgaussians_w_torch/csrc/preprocess.cu"
+    first, second = (f"{n}@{W}x{H}" for n, W, H, _ in PRE_SHAPES)
+    table = [dict(name="preprocess_forward", route="cuda", source=source, replaces=replaces,
+                  **rows_f[first], at_serve_shapes=rows_f[second]),
+             dict(name="preprocess_backward", route="cuda", source=source, replaces=replaces,
+                  **rows_b[first], at_serve_shapes=rows_b[second])]
+    return table, {"phase": "preprocess", "shapes": out}
+
+
+def preprocess_main() -> int:
+    """`python3 chip_smoke.py --preprocess`: the device line and the
+    preprocess phase alone."""
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    build.build(["preprocess"])
+    emit({"phase": "device", "kind": torch.cuda.get_device_name(0), "card": card_line(dev),
+          "kernel_build_s": time.perf_counter() - t0})
+    table, record = preprocess_phase(dev)
     emit({**record, "card": card_line(dev)})
     emit({"kernels": table})
     return 0
@@ -1269,7 +1400,7 @@ def train_kernels_phase(ts, dev):
 
 
 TRAIN_PATH = ("expand_entries", "composite_forward", "composite_backward", "segment_sum_rows",
-              "permute_entries")
+              "permute_entries", "preprocess_forward", "preprocess_backward")
 TRAINER_PATH = ("row_intervals", "expand_entries_intervals") + TRAIN_PATH[1:] + ("view_unpack",)
 
 
@@ -3012,6 +3143,10 @@ def main() -> int:
     view_table, record = view_unpack_phase(dev)
     report(record)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pre_table, record = preprocess_phase(dev)
+    report({**record, "wall_s": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
 
     ts = TrainSetup(host, cam0, dev)
     a_step_row, train_table, record = train_kernels_phase(ts, dev)
@@ -3106,7 +3241,7 @@ def main() -> int:
         row.pop("at_trainer_shapes")
     table = (table[:1] + [iv_entry, i_entry] + table[1:] + [packed_row, train_table[0], b_rows[21],
                                                     b_rows[51]] + train_table[1:] + shade_table
-             + view_table)
+             + view_table + pre_table)
     for entry in table:
         if entry["name"] in bench_rows:
             row = bench_rows[entry["name"]]
@@ -3128,4 +3263,5 @@ def main() -> int:
 if __name__ == "__main__":
     sys.exit(rank_main(sys.argv[2:]) if sys.argv[1:2] == ["--rank"]
              else shading_main() if sys.argv[1:2] == ["--shading"]
+             else preprocess_main() if sys.argv[1:2] == ["--preprocess"]
              else view_unpack_main() if sys.argv[1:2] == ["--view-unpack"] else main())

@@ -10,7 +10,8 @@ there is no fallback.
 and `reset_launches()` sets them all to 0.
 """
 
-from . import expand, row_intervals, segment_sum, shade, tile_composite, view_unpack
+from . import (expand, preprocess, row_intervals, segment_sum, shade, tile_composite,
+               view_unpack)
 
 # Each CUDA kernel's launch counter: kernel -> (wrapper module, counter name).
 KERNEL_COUNTERS = {"row_intervals": (row_intervals, "launches"),
@@ -23,7 +24,9 @@ KERNEL_COUNTERS = {"row_intervals": (row_intervals, "launches"),
                    "permute_entries": (segment_sum, "permute_launches"),
                    "shade_forward": (shade, "launches"),
                    "shade_backward": (shade, "backward_launches"),
-                   "view_unpack": (view_unpack, "launches")}
+                   "view_unpack": (view_unpack, "launches"),
+                   "preprocess_forward": (preprocess, "launches"),
+                   "preprocess_backward": (preprocess, "backward_launches")}
 
 
 def launch_counts() -> dict:

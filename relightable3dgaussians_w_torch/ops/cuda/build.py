@@ -37,6 +37,9 @@ KERNELS = {
     # Contraction off: the row-interval chain rounds each product and sum on
     # its own, as the plain version does (ops/preprocess.py).
     "row_intervals": ("row_intervals.cu", ["--fmad=false"]),
+    # Contraction off: the preprocess rounds each product and sum on its own,
+    # as the plain chain does (ops/preprocess.py), forward and backward.
+    "preprocess": ("preprocess.cu", ["--fmad=false"]),
     # Contraction on: the shading feeds colours and gradients, no predicate;
     # its one sign test (the normal's flip) rounds by hand.
     "shade": ("shade.cu", []),

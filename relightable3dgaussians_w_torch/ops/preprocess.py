@@ -15,11 +15,19 @@ rect further to the ellipse's per-tile-row x-intervals (one CUDA kernel on the
 card, `row_intervals_plain` on the CPU); the counts and packed rows equal the
 JAX package's bitwise.
 
-The float outputs (mean2d, conic, depth, cov3d) are differentiable with
-autograd. The radius and tile-rect chain is derivative-dead (every consumer is
-an integer), so it runs without autograd: the opacity that feeds the tightening
-gets no gradient from it, as the JAX package's `stop_gradient` says, and no
-0 * inf of a dead sqrt or floor can reach the real gradients.
+`preprocess` is one differentiable operation (`_Preprocess`): on the card its
+forward is kernel R and its backward kernel R' (`csrc/preprocess.cu`,
+`ops/cuda/preprocess.py`), R bitwise equal to the plain chain; on the CPU its
+forward is `preprocess_plain`, the unchanged chain, and its backward
+`preprocess_backward_plain`, the analytic gradient written from the same
+derivation as R', step for step, so that the CPU tests against autograd and
+the JAX package hold the derivation the kernel runs. Neither direction saves
+anything but the inputs, and nothing when no input needs a gradient.
+Gradients flow from mean2d, conic, depth and cov3d to the positions, scales
+and rotations (or a precomputed covariance). The radius and tile-rect chain
+is derivative-dead (every consumer is an integer): the opacity that feeds the
+tightening gets no gradient from it, as the JAX package's `stop_gradient`
+says, and the camera is a constant of the operation.
 """
 
 from __future__ import annotations
@@ -28,7 +36,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..utils.graphics import covariance_3d, ndc_to_pixel
+from ..utils.graphics import _rotmat_entries, covariance_3d, ndc_to_pixel
+from .cuda import preprocess as _preprocess_kernel
 from .cuda import row_intervals as _row_intervals_kernel
 
 
@@ -102,15 +111,17 @@ def _tile_floor(x: torch.Tensor, tile: int, hi: int) -> torch.Tensor:
     return torch.clamp(torch.floor(x / tile), 0, hi).to(torch.int32)
 
 
-def preprocess(means3d: torch.Tensor, scales: torch.Tensor, quats: torch.Tensor,
-               viewmat: torch.Tensor, projmat: torch.Tensor,
-               tan_fovx, tan_fovy, width: int, height: int, tile: int,
-               scale_modifier: float = 1.0,
-               active: torch.Tensor | None = None,
-               opacities: torch.Tensor | None = None,
-               skip_alpha: float = 1.0 / 255.0,
-               cov3d_precomp: torch.Tensor | None = None) -> PreprocessOut:
-    """Vectorized equivalent of preprocessCUDA.
+def preprocess_plain(means3d: torch.Tensor, scales: torch.Tensor, quats: torch.Tensor,
+                     viewmat: torch.Tensor, projmat: torch.Tensor,
+                     tan_fovx, tan_fovy, width: int, height: int, tile: int,
+                     scale_modifier: float = 1.0,
+                     active: torch.Tensor | None = None,
+                     opacities: torch.Tensor | None = None,
+                     skip_alpha: float = 1.0 / 255.0,
+                     cov3d_precomp: torch.Tensor | None = None) -> PreprocessOut:
+    """Vectorized equivalent of preprocessCUDA, in plain PyTorch: the chain
+    kernel R is held to bit for bit. Its float outputs are differentiable with
+    autograd; the rect chain runs without it (`_rects`).
 
     Args:
         means3d: [N, 3] world positions.
@@ -160,7 +171,8 @@ def preprocess(means3d: torch.Tensor, scales: torch.Tensor, quats: torch.Tensor,
 def _rects(mean2d, cxx, cxy, cyy, det, det_ok, in_front, conic, p_view_z, cov3d,
            tile, grid_x, grid_y, active, opacities, skip_alpha) -> PreprocessOut:
     """Screen radius, visibility and (opacity-tightened) tile rects, in the JAX
-    package's op order; run without autograd (module docstring)."""
+    package's op order; run without autograd, so no 0 * inf of a dead sqrt or
+    floor can reach the real gradients."""
     mid = 0.5 * (cxx + cyy)
     disc = torch.sqrt(torch.clamp_min(mid * mid - det, 0.1))
     lambda1 = mid + disc
@@ -218,6 +230,267 @@ def _rects(mean2d, cxx, cxy, cyy, det, det_ok, in_front, conic, p_view_z, cov3d,
         rect_max=torch.stack([rx_max, ry_max], dim=-1),
         cov3d=cov3d,
     )
+
+
+# ------------------------------------------------------------------ backward
+
+
+def _dmax(a, b):
+    """d maximum(a, b) / d a as autograd takes it: half at a tie."""
+    return torch.where(a > b, 1.0, torch.where(a == b, 0.5, 0.0))
+
+
+def _dmin(a, b):
+    """d minimum(a, b) / d a as autograd takes it: half at a tie."""
+    return torch.where(a < b, 1.0, torch.where(a == b, 0.5, 0.0))
+
+
+def preprocess_backward_plain(means3d, scales, quats, viewmat, projmat, tan_fovx, tan_fovy,
+                              width: int, height: int, scale_modifier: float = 1.0,
+                              cov3d_precomp=None, g_mean2d=None, g_conic=None, g_depth=None,
+                              g_cov3d=None):
+    """The gradient of `preprocess_plain`'s float outputs, analytic, written
+    step for step as kernel R' (csrc/preprocess.cu) computes it: the forward
+    recomputed from the inputs, then the center, the conic, the screen
+    covariance, the Jacobian, the frustum clamp, the view rows and the world
+    covariance in turn. Cotangents: g_mean2d [N, 2], g_conic [N, 3] (None:
+    zeros), g_depth [N] and g_cov3d [N, 6] or None.
+
+    Returns:
+        (d_means3d [N, 3], d_scales [N, 3], d_quats [N, 4], d_cov3d_precomp
+        [N, 6]): d_scales and d_quats None with cov3d_precomp, d_cov3d_precomp
+        None without.
+    """
+    p = means3d
+    zeros = lambda k: torch.zeros((p.shape[0], k), dtype=p.dtype, device=p.device)
+    gm = zeros(2) if g_mean2d is None else g_mean2d
+    gc = zeros(3) if g_conic is None else g_conic
+    tan_fovx = torch.as_tensor(tan_fovx, dtype=torch.float32, device=p.device)
+    tan_fovy = torch.as_tensor(tan_fovy, dtype=torch.float32, device=p.device)
+    focal_x = width / (2.0 * tan_fovx)
+    focal_y = height / (2.0 * tan_fovy)
+    limx = 1.3 * tan_fovx
+    limy = 1.3 * tan_fovy
+    if cov3d_precomp is None:
+        R = _rotmat_entries(quats)
+        s = [scale_modifier * scales[:, k] for k in range(3)]
+        s2 = [sk * sk for sk in s]
+        cov3d = covariance_3d(scales, quats, scale_modifier)
+    else:
+        cov3d = cov3d_precomp
+    V, P = viewmat, projmat
+
+    # The forward's intermediates (compute_cov2d, the conic).
+    t0, t1, t2 = (_affine_row(p, V, i) for i in range(3))
+    in_front = t2 > 0.2
+    tz = torch.where(in_front, t2, 1.0)
+    txtz, tytz = t0 / tz, t1 / tz
+    mx_x = torch.maximum(txtz, -limx)
+    clx = torch.minimum(mx_x, limx)
+    mx_y = torch.maximum(tytz, -limy)
+    cly = torch.minimum(mx_y, limy)
+    tx, ty = clx * tz, cly * tz
+    tz2 = tz * tz
+    j00, j02 = focal_x / tz, -(focal_x * tx) / tz2
+    j11, j12 = focal_y / tz, -(focal_y * ty) / tz2
+    m0 = [j00 * V[0, k] + j02 * V[2, k] for k in range(3)]
+    m1 = [j11 * V[1, k] + j12 * V[2, k] for k in range(3)]
+    a, b, c, d, e, f = (cov3d[:, i] for i in range(6))
+    S = ((a, b, c), (b, d, e), (c, e, f))
+    vx = [S[r][0] * m0[0] + S[r][1] * m0[1] + S[r][2] * m0[2] for r in range(3)]
+    vy = [S[r][0] * m1[0] + S[r][1] * m1[1] + S[r][2] * m1[2] for r in range(3)]
+    cxx = m0[0] * vx[0] + m0[1] * vx[1] + m0[2] * vx[2] + 0.3
+    cxy = m1[0] * vx[0] + m1[1] * vx[1] + m1[2] * vx[2]
+    cyy = m1[0] * vy[0] + m1[1] * vy[1] + m1[2] * vy[2] + 0.3
+    det = cxx * cyy - cxy * cxy
+    det_ok = det != 0.0
+    di = 1.0 / torch.where(det_ok, det, 1.0)
+
+    # The center: mean2d = ((u + 1) W - 1) / 2, u = ph * inv_w.
+    ph_x, ph_y, pw = (_affine_row(p, P, i) for i in (0, 1, 3))
+    inv_w = torch.where(in_front, 1.0 / (pw + 1e-7), 0.0)
+    gu = gm[:, 0] * 0.5 * width
+    gv = gm[:, 1] * 0.5 * height
+    g_phx, g_phy = gu * inv_w, gv * inv_w
+    g_invw = gu * ph_x + gv * ph_y
+    g_pw = torch.where(in_front, -g_invw * inv_w * inv_w, 0.0)
+
+    # The conic (cyy, -cxy, cxx) / det, det = cxx cyy - cxy^2.
+    g_cxx, g_cxy, g_cyy = gc[:, 2] * di, -gc[:, 1] * di, gc[:, 0] * di
+    g_di = gc[:, 0] * cyy - gc[:, 1] * cxy + gc[:, 2] * cxx
+    g_det = torch.where(det_ok, -g_di * di * di, 0.0)
+    g_cxx = g_cxx + g_det * cyy
+    g_cyy = g_cyy + g_det * cxx
+    g_cxy = g_cxy - 2.0 * cxy * g_det
+
+    # The screen covariance: cxx = m0' S m0, cxy = m1' S m0, cyy = m1' S m1;
+    # gS[(j, k)] sums the full matrix's (j, k) and (k, j) entries.
+    gS = []
+    for u, (j, k) in enumerate(((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))):
+        if j == k:
+            g = g_cxx * m0[j] * m0[j] + g_cxy * m1[j] * m0[j] + g_cyy * m1[j] * m1[j]
+        else:
+            g = (2.0 * g_cxx * m0[j] * m0[k] + g_cxy * (m1[j] * m0[k] + m1[k] * m0[j])
+                 + 2.0 * g_cyy * m1[j] * m1[k])
+        gS.append(g if g_cov3d is None else g + g_cov3d[:, u])
+    g_m0 = [2.0 * g_cxx * vx[k] + g_cxy * vy[k] for k in range(3)]
+    g_m1 = [g_cxy * vx[k] + 2.0 * g_cyy * vy[k] for k in range(3)]
+
+    # J: m0 = j00 W0 + j02 W2, m1 = j11 W1 + j12 W2; j00 = fx / tz,
+    # j02 = -fx tx / tz^2, j11 = fy / tz, j12 = -fy ty / tz^2.
+    g_j00 = g_m0[0] * V[0, 0] + g_m0[1] * V[0, 1] + g_m0[2] * V[0, 2]
+    g_j02 = g_m0[0] * V[2, 0] + g_m0[1] * V[2, 1] + g_m0[2] * V[2, 2]
+    g_j11 = g_m1[0] * V[1, 0] + g_m1[1] * V[1, 1] + g_m1[2] * V[1, 2]
+    g_j12 = g_m1[0] * V[2, 0] + g_m1[1] * V[2, 1] + g_m1[2] * V[2, 2]
+    g_tz = -(g_j00 * j00 + g_j11 * j11 + 2.0 * (g_j02 * j02 + g_j12 * j12)) / tz
+    g_tx = -(g_j02 * focal_x) / tz2
+    g_ty = -(g_j12 * focal_y) / tz2
+    # tx = min(max(t0 / tz, -limx), limx) tz.
+    g_tz = g_tz + g_tx * clx + g_ty * cly
+    g_txtz = g_tx * tz * _dmin(mx_x, limx) * _dmax(txtz, -limx)
+    g_tytz = g_ty * tz * _dmin(mx_y, limy) * _dmax(tytz, -limy)
+    g_tz = g_tz - (g_txtz * txtz + g_tytz * tytz) / tz
+    g_t0, g_t1 = g_txtz / tz, g_tytz / tz
+    g_t2 = torch.where(in_front, g_tz, 0.0)
+    if g_depth is not None:
+        g_t2 = g_t2 + g_depth
+    d_means = torch.stack([g_t0 * V[0, k] + g_t1 * V[1, k] + g_t2 * V[2, k] + g_phx * P[0, k]
+                           + g_phy * P[1, k] + g_pw * P[3, k] for k in range(3)], dim=-1)
+    if cov3d_precomp is not None:
+        return d_means, None, None, torch.stack(gS, dim=-1)
+
+    # S = R diag(s^2) R', s = scale_modifier * scales.
+    gxx, gxy, gxz, gyy, gyz, gzz = gS
+    d_scales, gR = [], [None] * 9
+    for k in range(3):
+        r0, r1, r2 = R[k], R[3 + k], R[6 + k]
+        g_s2 = (gxx * r0 * r0 + gxy * r0 * r1 + gxz * r0 * r2 + gyy * r1 * r1
+                + gyz * r1 * r2 + gzz * r2 * r2)
+        d_scales.append(g_s2 * 2.0 * s[k] * scale_modifier)
+        gR[k] = s2[k] * (2.0 * gxx * r0 + gxy * r1 + gxz * r2)
+        gR[3 + k] = s2[k] * (gxy * r0 + 2.0 * gyy * r1 + gyz * r2)
+        gR[6 + k] = s2[k] * (gxz * r0 + gyz * r1 + 2.0 * gzz * r2)
+    # The rotation's entries in the quaternion (w, x, y, z).
+    w, x, y, z = (quats[:, k] for k in range(4))
+    gw = 2.0 * (-z * gR[1] + y * gR[2] + z * gR[3] - x * gR[5] - y * gR[6] + x * gR[7])
+    gx = 2.0 * (y * gR[1] + z * gR[2] + y * gR[3] - 2.0 * x * gR[4] - w * gR[5] + z * gR[6]
+                + w * gR[7] - 2.0 * x * gR[8])
+    gy = 2.0 * (-2.0 * y * gR[0] + x * gR[1] + w * gR[2] + x * gR[3] + z * gR[5] - w * gR[6]
+                + z * gR[7] - 2.0 * y * gR[8])
+    gz = 2.0 * (-2.0 * z * gR[0] - w * gR[1] + x * gR[2] + w * gR[3] - 2.0 * z * gR[4]
+                + y * gR[5] + x * gR[6] + y * gR[7])
+    return (d_means, torch.stack(d_scales, dim=-1), torch.stack([gw, gx, gy, gz], dim=-1),
+            None)
+
+
+# ------------------------------------------------------------------ the operation
+
+
+class _Options(NamedTuple):
+    width: int
+    height: int
+    tile: int
+    scale_modifier: float
+    skip_alpha: float
+
+
+def _camera_on(dev, viewmat, projmat, tan_fovx, tan_fovy):
+    """The kernels' camera tensors: float32, contiguous, on `dev`."""
+    return tuple(t.to(dev, torch.float32).contiguous()
+                 for t in (viewmat, projmat, tan_fovx, tan_fovy))
+
+
+def _rows(t):
+    return None if t is None else t.contiguous()
+
+
+class _Preprocess(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, means3d, scales, quats, cov3d_precomp, opacities, active, viewmat,
+                projmat, tan_fovx, tan_fovy, opts: _Options):
+        ctx.set_materialize_grads(False)
+        ctx.opts = opts
+        if any(ctx.needs_input_grad[:4]):
+            ctx.save_for_backward(means3d, scales, quats, cov3d_precomp, viewmat, projmat,
+                                  tan_fovx, tan_fovy)
+        if means3d.is_cuda:
+            out = _preprocess_kernel.preprocess_forward(
+                means3d.contiguous(), _rows(scales), _rows(quats), _rows(cov3d_precomp),
+                _rows(opacities), _rows(active),
+                _camera_on(means3d.device, viewmat, projmat, tan_fovx, tan_fovy),
+                opts.width, opts.height, opts.tile, opts.scale_modifier, opts.skip_alpha)
+        else:
+            out = preprocess_plain(means3d, scales, quats, viewmat, projmat, tan_fovx,
+                                   tan_fovy, opts.width, opts.height, opts.tile,
+                                   opts.scale_modifier, active, opacities, opts.skip_alpha,
+                                   cov3d_precomp)
+        ctx.mark_non_differentiable(*out[3:7])
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, g_mean2d, g_conic, g_depth, _radius, _tiles, _rmin, _rmax, g_cov3d):
+        nothing = (None,) * 11
+        if g_mean2d is None and g_conic is None and g_depth is None and g_cov3d is None:
+            return nothing
+        means3d, scales, quats, cov3d_precomp, viewmat, projmat, tanx, tany = ctx.saved_tensors
+        o = ctx.opts
+        with torch.profiler.record_function("rasterize.preprocess_backward"):
+            if means3d.is_cuda:
+                n, dev = means3d.shape[0], means3d.device
+                zeros = lambda k: torch.zeros((n, k), dtype=torch.float32, device=dev)
+                grads = _preprocess_kernel.preprocess_backward(
+                    means3d.contiguous(), _rows(scales), _rows(quats), _rows(cov3d_precomp),
+                    _camera_on(dev, viewmat, projmat, tanx, tany), o.width, o.height,
+                    o.scale_modifier, zeros(2) if g_mean2d is None else g_mean2d,
+                    zeros(3) if g_conic is None else g_conic, g_depth, g_cov3d)
+            else:
+                grads = preprocess_backward_plain(
+                    means3d, scales, quats, viewmat, projmat, tanx, tany, o.width, o.height,
+                    o.scale_modifier, cov3d_precomp, g_mean2d, g_conic, g_depth, g_cov3d)
+        grads = tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
+        return grads + nothing[4:]
+
+
+def preprocess(means3d: torch.Tensor, scales: torch.Tensor, quats: torch.Tensor,
+               viewmat: torch.Tensor, projmat: torch.Tensor,
+               tan_fovx, tan_fovy, width: int, height: int, tile: int,
+               scale_modifier: float = 1.0,
+               active: torch.Tensor | None = None,
+               opacities: torch.Tensor | None = None,
+               skip_alpha: float = 1.0 / 255.0,
+               cov3d_precomp: torch.Tensor | None = None) -> PreprocessOut:
+    """Vectorized equivalent of preprocessCUDA: kernels R and R' on the card,
+    the plain chain and its analytic gradient on the CPU (module docstring).
+
+    Args:
+        means3d: [N, 3] world positions.
+        scales: [N, 3] activated (positive) scales.
+        quats: [N, 4] normalized quaternions (w, x, y, z).
+        viewmat: [4, 4] world->view (math convention).
+        projmat: [4, 4] full projection = P @ viewmat.
+        tan_fovx, tan_fovy: float32 scalar tensors.
+        active: optional [N] bool; rows with False are culled outright.
+        opacities: optional [N] or [N, 1] activated opacities; enables the exact
+            opacity-aware rect tightening (no gradient flows to them).
+        skip_alpha: rect-tightening alpha threshold (1/255 = exact).
+        cov3d_precomp: optional [N, 6] world covariance used in place of the
+            one built from scales and quats (which may then be None).
+    """
+    dev = means3d.device
+    tan_fovx = torch.as_tensor(tan_fovx, dtype=torch.float32, device=dev)
+    tan_fovy = torch.as_tensor(tan_fovy, dtype=torch.float32, device=dev)
+    if any(t.requires_grad for t in (viewmat, projmat, tan_fovx, tan_fovy)):
+        raise ValueError("preprocess: the camera is a constant of the operation (no gradient "
+                         "flows to it)")
+    if opacities is not None:
+        opacities = (opacities[:, 0] if opacities.ndim == 2 else opacities).detach()
+    if cov3d_precomp is not None:
+        scales = quats = None
+    out = _Preprocess.apply(means3d, scales, quats, cov3d_precomp, opacities, active, viewmat,
+                            projmat, tan_fovx, tan_fovy,
+                            _Options(int(width), int(height), int(tile), float(scale_modifier),
+                                     float(skip_alpha)))
+    return PreprocessOut(*out)
 
 
 H_CAP = 8              # tile rows with exact per-row intervals; deeper rows keep

@@ -999,3 +999,155 @@ def test_view_unpack_kernel_matches_plain(dev, h, w, H, W, channels, masks):
     assert view_unpack.launches == before + 1
     for a, x in zip(got, want):
         assert torch.equal(a.cpu(), x)
+
+
+# ------------------------------------------------------------------ preprocess (R, R')
+
+# case -> (camera, scale_modifier, skip_alpha, precomputed covariance, opacities, active)
+PRE_CASES = {
+    "tightened": ("edge", 1.0, 1.0 / 255.0, False, True, True),
+    "untightened": ("edge", 1.0, 1.0 / 255.0, False, False, True),
+    "active_off": ("edge", 1.0, 1.0 / 255.0, False, True, False),
+    "precomp": ("edge", 1.0, 1.0 / 255.0, True, False, True),
+    "precomp_tightened": ("edge", 1.0, 1.0 / 255.0, True, True, False),
+    "modifier": ("synthetic", 1.3, 1.0 / 255.0, False, True, True),
+    "serving_lod": ("synthetic", 1.0, 1.0 / 32.0, False, True, True),
+}
+
+
+def _pre_call(dev, case, n, seed=0, width=None):
+    """(the inputs, a call of `preprocess` or `preprocess_plain` on them)."""
+    from _preprocess_rows import SIZE, edge_camera, random_rows
+
+    cam_kind, mod, skip, precomp, with_op, with_active = PRE_CASES[case]
+    means, scales, quats, opac, active, cov = (t.to(dev) for t in random_rows(n, seed))
+    if cam_kind == "edge":
+        cam, w, h = edge_camera(dev), SIZE, SIZE
+    else:
+        w, h = width or 800, 600
+        cam = synthetic.camera(w, h, viewmat=np.array(
+            [[0.98, 0.0, -0.199, 0.3], [0.0, 1.0, 0.0, -0.1], [0.199, 0.0, 0.98, 0.2],
+             [0.0, 0.0, 0.0, 1.0]], np.float32), device=dev)
+    kw = dict(scale_modifier=mod, skip_alpha=skip, opacities=opac if with_op else None,
+              active=active if with_active else None)
+    leaves = (means, None, None, cov) if precomp else (means, scales, quats, None)
+
+    def call(fn, m, s, q, c):
+        return fn(m, s, q, cam.viewmat, cam.projmat, cam.tan_fovx, cam.tan_fovy, w, h, 16,
+                  cov3d_precomp=c, **kw)
+    return leaves, call
+
+
+def _same_bits(got, want):
+    """Every field of two PreprocessOuts bit for bit (floats by their bits)."""
+    for f in preprocess.PreprocessOut._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        if a.is_floating_point():
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        differ = int((a != b).sum())
+        assert differ == 0, (f, differ)
+
+
+@pytest.mark.parametrize("case", list(PRE_CASES))
+def test_preprocess_kernel_matches_plain(dev, case):
+    """Kernel R against the plain chain on the card, every field bitwise: the
+    edge rows (near plane, frustum clamp and its tie, culled and padded rows,
+    opacities under, at and over the threshold, a rect over the grid, a
+    singular screen covariance) and random ones, with opacities and `active`
+    on and off, a precomputed covariance, a scale modifier and a serving LOD
+    threshold."""
+    from relightable3dgaussians_w_torch.ops.cuda import preprocess as preprocess_kernel
+
+    leaves, call = _pre_call(dev, case, 20_000)
+    before = preprocess_kernel.launches
+    got = call(preprocess.preprocess, *leaves)
+    with torch.no_grad():
+        want = call(preprocess.preprocess_plain, *leaves)
+    torch.cuda.synchronize()
+    assert preprocess_kernel.launches == before + 1
+    _same_bits(got, want)
+    assert int(got.tiles_touched.sum()) > 0 and int((got.radius == 0).sum()) > 0
+    if case.startswith("precomp"):
+        assert got.cov3d.data_ptr() == leaves[3].data_ptr()
+
+
+def test_preprocess_kernel_on_a_pool(dev):
+    """Kernel R bitwise at a training pool's size (1.01M rows, a 1600 px
+    frame, opacities and `active`)."""
+    leaves, call = _pre_call(dev, "modifier", 1_010_000, seed=5, width=1600)
+    got = call(preprocess.preprocess, *leaves)
+    with torch.no_grad():
+        want = call(preprocess.preprocess_plain, *leaves)
+    torch.cuda.synchronize()
+    _same_bits(got, want)
+
+
+def _pre_grads(dev, case, n, seed=0):
+    """(kernel R' gradients through `preprocess`, autograd's over the plain
+    chain, the rows with all-zero cotangents)."""
+    from _preprocess_rows import cotangents
+
+    leaves, call = _pre_call(dev, case, n, seed)
+    with torch.no_grad():
+        pre = call(preprocess.preprocess_plain, *leaves)
+    cot, idle = cotangents(pre, seed + 1)
+    out = []
+    for fn in (preprocess.preprocess, preprocess.preprocess_plain):
+        req = [None if t is None else t.clone().requires_grad_(True) for t in leaves]
+        p = call(fn, *req)
+        outs = [p.mean2d, p.conic, p.depth, p.cov3d]
+        grads = torch.autograd.grad(outs, [t for t in req if t is not None], cot)
+        out.append(grads)
+    torch.cuda.synchronize()
+    return out[0], out[1], idle
+
+
+@pytest.mark.parametrize("case", ["tightened", "precomp", "modifier"])
+def test_preprocess_backward_kernel_matches_autograd(dev, case):
+    """Kernel R' against autograd over the plain chain on the card: every
+    leaf within 5e-3 of its largest value; rows with all-zero cotangents get
+    exactly zero gradients."""
+    got, want, idle = _pre_grads(dev, case, 20_000)
+    for g, w in zip(got, want, strict=True):
+        assert float((g - w).abs().max()) < 5e-3 * float(w.abs().max()), case
+        assert not g[idle].any()
+
+
+def test_preprocess_backward_is_bitwise_repeatable(dev):
+    """One thread a row, no atomics: two backward runs at 1.01M rows give the
+    same bits, and match autograd within 5e-3 there too."""
+    a, want, _ = _pre_grads(dev, "modifier", 1_010_000, seed=3)
+    b, _, _ = _pre_grads(dev, "modifier", 1_010_000, seed=3)
+    for x, y, w in zip(a, b, want, strict=True):
+        assert torch.equal(x, y)
+        assert float((x - w).abs().max()) < 5e-3 * float(w.abs().max())
+
+
+def test_preprocess_launches_once_and_never_the_plain_chain(dev, monkeypatch):
+    """A differentiable render on the card: one launch of R, one of R', and no
+    call of the plain chain or its analytic gradient; the gather's transpose
+    hands R' its cotangents as column slices, read in place."""
+    from relightable3dgaussians_w_torch.ops.cuda import preprocess as preprocess_kernel
+
+    def refuse(*_, **__):
+        raise AssertionError("the plain chain ran on the card")
+
+    monkeypatch.setattr(preprocess, "preprocess_plain", refuse)
+    monkeypatch.setattr(preprocess, "preprocess_backward_plain", refuse)
+    p, s = synthetic.synthetic_scene(n=5000, n_sky=500, seed=1, device=dev)
+    cam = synthetic.camera(64, 64, device=dev)
+    # Anisotropic scales: an isotropic Gaussian's rotation has no gradient.
+    aniso = torch.tensor([1.0, 0.6, 1.5], device=dev)
+    xyz, scl, rot = (t.clone().requires_grad_(True) for t in (
+        G.get_xyz(p, s), G.get_scaling(p) * aniso, G.get_rotation(p)))
+    opa = G.get_opacity(p, s)[:, 0]
+    colors = torch.rand((5500, 3), device=dev)
+    rcfg = rasterize.RasterizerConfig(width=64, height=64, max_dup=1 << 16)
+    preprocess_kernel.launches = preprocess_kernel.backward_launches = 0
+    img, _ = rasterize.rasterize(xyz, scl, rot, opa, colors, torch.zeros(3, device=dev), cam,
+                                 rcfg, active=s.alive, device=dev)
+    img.sum().backward()
+    torch.cuda.synchronize()
+    assert (preprocess_kernel.launches, preprocess_kernel.backward_launches) == (1, 1)
+    assert all(bool(t.grad.abs().sum() > 0) for t in (xyz, scl, rot))
